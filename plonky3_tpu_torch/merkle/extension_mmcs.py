@@ -1,0 +1,46 @@
+"""ExtensionMmcs: commit extension-field matrices through a base MMCS.
+
+Port of `plonky3_tpu/merkle/extension_mmcs.py`
+(commit/src/adapters/extension_mmcs.rs:17): an (h, w, D) extension matrix
+is committed as the flattened (h, w·D) base matrix, and opened rows are
+regrouped into D-tuples.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from .mmcs import MerkleProverData, MerkleTreeMmcs
+
+
+@dataclass(frozen=True)
+class ExtensionMmcs:
+    inner: MerkleTreeMmcs
+    D: int
+
+    def commit_ext_matrix(self, mat) -> MerkleProverData:
+        h, w, d = mat.shape
+        if d != self.D:
+            raise ValueError(f"expected {self.D} components, got {d}")
+        return self.inner.commit([mat.reshape(h, w * d)])
+
+    def _regroup(self, rows_pq):
+        D = self.D
+        return [
+            [[tuple(row[i:i + D]) for i in range(0, len(row), D)]
+             for row in rows]
+            for rows in rows_pq
+        ]
+
+    def open_multi_batch(self, data: MerkleProverData, indices):
+        rows_pq, sibling_hashes = self.inner.open_multi_batch(data, indices)
+        return self._regroup(rows_pq), sibling_hashes
+
+    # PullBatcher protocol: the inner tree plans the gathers; rows are
+    # regrouped into extension tuples when they arrive
+    def _omb_plan(self, data, indices):
+        return self.inner._omb_plan(data, indices)
+
+    def _omb_finish(self, data, plan, pulled):
+        rows_pq, sibs = self.inner._omb_finish(data, plan, pulled)
+        return self._regroup(rows_pq), sibs

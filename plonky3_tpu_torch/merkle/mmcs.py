@@ -1,0 +1,208 @@
+"""Merkle-tree MMCS: batched tree build on the device, pruned openings.
+
+Port of the parts of `plonky3_tpu/merkle/mmcs.py` that the prover reaches
+(merkle-tree/src/merkle_tree.rs:95,141-170; mmcs/batch.rs:42,275). The leaf
+layer hashes every row at once, and each compression layer halves the
+digest count. Matrices of a shorter height are injected when the ladder
+reaches their height (taller matrices first, same-height matrices
+concatenated row-wise in input order).
+
+Openings are pruned multiproofs (merkle-tree/src/pruning.rs): a sibling
+digest is shipped only when no queried leaf lies under it, in the
+normative wire order (level 0 first; within a level by ascending parent;
+within a group missing positions ascending). `PullBatcher` gathers the
+rows and digests of several trees and copies them to the host in one
+transfer.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..utils.bits import log2_strict
+
+
+@dataclass
+class MerkleProverData:
+    matrices: list  # committed (h, w) int64 tensors, rows in committed order
+    layers: list  # digest layers, layers[0] = leaf digests (h, 8)
+    root_std: tuple  # root digest words (host ints)
+    # Merkle cap (merkle_tree.rs:182-198): the 2^cap_height digests
+    # cap_height levels below the root; (root_std,) for cap height 0
+    cap_std: tuple = None
+    coeffs: list = None  # scaled interpolant coefficients (set by the PCS)
+
+    @property
+    def commitment(self):
+        """Wire commitment: the root, or the cap when it has > 1 digest."""
+        if self.cap_std is not None and len(self.cap_std) > 1:
+            return self.cap_std
+        return self.root_std
+
+
+def _build_layers(mmcs, mats):
+    """Leaf sponge and compression ladder with mixed-height injection."""
+    heights = [m.shape[0] for m in mats]
+    order = sorted(range(len(mats)), key=lambda i: -heights[i])
+
+    def take(h):
+        return [mats[i] for i in order if heights[i] == h]
+
+    h = max(heights)
+    layers = [mmcs.sponge.hash_rows_device(take(h))]
+    while h > 1:
+        h //= 2
+        pairs = layers[-1].reshape(h, 2, -1)
+        layer = mmcs.compressor.compress_device(pairs[:, 0], pairs[:, 1])
+        inject = take(h)
+        if inject:
+            tips = mmcs.sponge.hash_rows_device(inject)
+            layer = mmcs.compressor.compress_device(layer, tips)
+        layers.append(layer)
+    return layers
+
+
+def pull_all(arrays, idxs):
+    """Gather rows idxs[k] of arrays[k] for every k and copy them to the
+    host in one transfer; returns numpy arrays of the gathered shapes."""
+    if not arrays:
+        return []
+    flat = torch.cat([a.index_select(0, i).reshape(-1)
+                      for a, i in zip(arrays, idxs)]).cpu().numpy()
+    out, off = [], 0
+    for a, i in zip(arrays, idxs):
+        shape = (int(i.shape[0]),) + tuple(a.shape[1:])
+        cnt = int(np.prod(shape, dtype=np.int64))
+        out.append(flat[off:off + cnt].reshape(shape))
+        off += cnt
+    return out
+
+
+class _Fut:
+    """Resolved by PullBatcher.flush()."""
+
+    __slots__ = ("value",)
+
+
+class PullBatcher:
+    """Share one device-to-host transfer across several trees' pruned
+    multi-openings: fut = batcher.add(mmcs, data, indices); flush();
+    rows, proof = fut.value."""
+
+    def __init__(self):
+        self.entries = []
+
+    def add(self, mmcs, data, indices):
+        fut = _Fut()
+        self.entries.append((mmcs, data, mmcs._omb_plan(data, indices), fut))
+        return fut
+
+    def flush(self):
+        arrays, idxs = [], []
+        for _, _, plan, _ in self.entries:
+            arrays.extend(plan["dev_arrays"])
+            idxs.extend(plan["dev_idx"])
+        pulled = pull_all(arrays, idxs)
+        off = 0
+        for mmcs, data, plan, fut in self.entries:
+            k = len(plan["dev_arrays"])
+            fut.value = mmcs._omb_finish(data, plan, pulled[off:off + k])
+            off += k
+        self.entries = []
+
+
+@dataclass(frozen=True)
+class MerkleTreeMmcs:
+    sponge: object
+    compressor: object
+    cap_height: int = 0
+
+    def _eff_cap(self, log_max: int) -> int:
+        """The cap height clamps to the tree height."""
+        return min(self.cap_height, log_max)
+
+    @property
+    def F(self):
+        return self.sponge.F
+
+    def commit(self, mats) -> MerkleProverData:
+        """Commit to (h, w) int64 tensors whose heights are powers of two
+        (rows already in their final order)."""
+        mats = list(mats)
+        for m in mats:
+            log2_strict(m.shape[0])
+        layers = _build_layers(self, mats)
+        root_std = tuple(int(x) for x in layers[-1][0].cpu().tolist())
+        log_max = log2_strict(max(m.shape[0] for m in mats))
+        eff_cap = self._eff_cap(log_max)
+        if eff_cap == 0:
+            cap_std = (root_std,)
+        else:
+            if min(m.shape[0] for m in mats) < (1 << eff_cap):
+                raise ValueError("a matrix shorter than the Merkle cap "
+                                 "layer cannot be opened")
+            cap_std = tuple(tuple(int(x) for x in row)
+                            for row in layers[log_max - eff_cap].cpu().tolist())
+        return MerkleProverData(matrices=mats, layers=layers,
+                                root_std=root_std, cap_std=cap_std)
+
+    def open_multi_batch(self, data: MerkleProverData, indices):
+        """Open many indices with one pruned proof: (rows per query,
+        sibling digests in frontier order)."""
+        plan = self._omb_plan(data, indices)
+        return self._omb_finish(
+            data, plan, pull_all(plan["dev_arrays"], plan["dev_idx"]))
+
+    def _omb_plan(self, data: MerkleProverData, indices):
+        """Frontier walk and gather list (no transfer yet)."""
+        log_max = log2_strict(data.layers[0].shape[0])
+        frontier = sorted(set(int(i) for i in indices))
+        want, by_level = [], {}
+        for lvl in range(log_max - self._eff_cap(log_max)):
+            present = set(frontier)
+            for node in frontier:
+                if node ^ 1 not in present:
+                    want.append((lvl, node ^ 1))
+                    by_level.setdefault(lvl, []).append(node ^ 1)
+            frontier = sorted({node >> 1 for node in frontier})
+        dev_arrays, dev_idx, dev_tags = [], [], []
+        for k, m in enumerate(data.matrices):
+            shift = log_max - log2_strict(m.shape[0])
+            dev_arrays.append(m)
+            dev_idx.append(torch.tensor([i >> shift for i in indices],
+                                        dtype=torch.int64, device=m.device))
+            dev_tags.append(("mat", k))
+        for lvl, nodes in by_level.items():
+            layer = data.layers[lvl]
+            dev_arrays.append(layer)
+            dev_idx.append(torch.tensor(nodes, dtype=torch.int64,
+                                        device=layer.device))
+            dev_tags.append(("lvl", lvl))
+        return dict(dev_arrays=dev_arrays, dev_idx=dev_idx,
+                    dev_tags=dev_tags, by_level=by_level, want=want,
+                    Q=len(indices))
+
+    def _omb_finish(self, data: MerkleProverData, plan, pulled):
+        """Pulled arrays -> standard-form rows and the pruned proof."""
+        F = self.F
+        Q = plan["Q"]
+        mat_rows, lvl_digs = {}, {}
+        for (kind, key), arr in zip(plan["dev_tags"], pulled):
+            if kind == "mat":
+                mat_rows[key] = arr
+            else:
+                lvl_digs[key] = arr
+        mat_lists = [
+            F.from_monty_np(mat_rows[k]).reshape(Q, -1).tolist()
+            for k in range(len(data.matrices))
+        ]
+        rows_pq = [[mat_lists[k][q] for k in range(len(data.matrices))]
+                   for q in range(Q)]
+        digests = {}
+        for lvl, nodes in plan["by_level"].items():
+            for node, d in zip(nodes, lvl_digs[lvl].tolist()):
+                digests[(lvl, node)] = tuple(int(x) for x in d)
+        return rows_pq, [digests[key] for key in plan["want"]]
