@@ -6,12 +6,20 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases, each printed as one JSON line:
-  card     the GPU's name and power limit (nvidia-smi), then an nvcc build
-           of every kernel in plonky3_tpu_torch/csrc/;
+  card     the GPU's name and power limit (nvidia-smi), its integer peak
+           (SMs x 64 lanes x the maximum SM clock), then an nvcc build
+           of every kernel in plonky3_tpu_torch/csrc/, with ptxas's
+           register report and the SASS opcode counts of the main path's
+           size-2^9 NTT kernels;
   kernels  each kernel against its plain PyTorch version on the card, bit
-           for bit, at the main path's shapes and at small ones, with the
-           median kernel time, the plain version's time and the kernel's
-           bound (the least time for its bytes or operations on this card);
+           for bit, at the main path's shapes and at small ones (NTTs up
+           to 2^22 rows, each with the k1 and k2 launches it made, which
+           must match ntt_cuda.plan), with the median kernel time, the
+           plain version's
+           time, the kernel's bound (the least time for its bytes or for
+           the busier integer pipe's operations on this card) and its
+           share (bound / time; above 1.05 the count is wrong and the
+           script fails);
   small    prove() on CUDA equals prove() on the CPU (plain versions) for
            Poseidon2VectorAir(KoalaBear, 16, vector_len=8) at 2^8 rows;
   full     the benchmark workload: 2^20 Poseidon2 permutations, a
@@ -19,7 +27,8 @@ Phases, each printed as one JSON line:
            .new_benchmark_high_arity(); two proves, the second timed, with
            the kernel launch counts of that prove; then a prove with
            per-stage spans ("spans") and one under torch.profiler
-           ("profile": device time by kernel, device idle share).
+           ("profile": device time by kernel, the port's own kernels
+           listed apart, device idle share).
 Before the last line: one JSON object listing every kernel. The last line
 is {"ok": true, "device": {...}}. Any mismatch or error exits nonzero and
 prints no result. Imports nothing of JAX or of plonky3_tpu.
@@ -28,16 +37,21 @@ prints no result. Imports nothing of JAX or of plonky3_tpu.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and the
-# 32-bit rate outside the tensor cores, used as the integer-op peak.
+# H100 SXM published HBM bandwidth (NVIDIA data sheet). The integer peak
+# is read from the card in phase_card: SMs × 64 lanes × the maximum SM
+# clock, the rate of the ALU pipe (LOP3, SHF, IADD3, compare, select)
+# and of the integer multiply on the FMA pipe (IMAD, IMUL, IMAD.HI).
 HBM_BYTES_PER_S = 3.35e12
-OPS_32_PER_S = 67e12
+INT_LANES_PER_SM = 64
 
 
 def emit(obj):
@@ -60,19 +74,64 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(peak, n_bytes: float, alu_ops: float, mul_ops: float = 0):
+    """The least time for the work and what sets it: the bytes over the
+    HBM rate, or the busier integer pipe over `peak` ops/s."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / OPS_32_PER_S * 1e3
+    t_ops = max(alu_ops, mul_ops) / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# 32-bit operations per keccak-f: 155 64-bit ops per round (theta 55,
-# rho-pi 24 rotations, chi 75, iota 1), each two 32-bit ops, 24 rounds.
-KECCAK_F_OPS = 155 * 2 * 24
-# 32-bit operations per NTT butterfly (add, sub, Shoup product) and per
-# correction (Shoup product).
-BUTTERFLY_OPS = 10
-SHOUP_OPS = 5
+def share(what, bound, ms):
+    """bound ÷ time; above 1.05 the op or byte count must be wrong."""
+    s = bound / ms
+    if s > 1.05:
+        raise AssertionError(f"{what}: {ms} ms beats its bound {bound} ms")
+    return s
+
+
+# 32-bit instructions per keccak-f[1600] with three-input logic (LOP3)
+# and funnel shifts (SHF), per round: theta's five column parities of two
+# 32-bit halves, 2 LOP3 each (20); the rotate by one of each parity, 2
+# SHF each (10); C[x-1] ^ rot(C[x+1]) folded into each of the 25 lanes,
+# one LOP3 per half (50); rho, 2 SHF for each of the 24 rotated lanes
+# (48); chi, one LOP3 per half-lane (50); iota, two XORs (2). 180 per
+# round, 24 rounds.
+KECCAK_F_ALU = (20 + 10 + 50 + 48 + 50 + 2) * 24
+
+
+def ntt_ops(butterflies: int, shoups: int):
+    """(ALU, multiply) instructions of NTT butterflies and lone Shoup
+    products (the correction, the zero_top stage 0). A reduction
+    min(x, x - p) fuses with its add into one VIADDMNMX, so a butterfly
+    is add + reduce twice and a reduce after the product (5 ALU) and
+    the product's IMAD.HI, IMUL and IMAD (3 multiplies); a lone product
+    is 1 ALU + 3 multiplies."""
+    return 5 * butterflies + shoups, 3 * (butterflies + shoups)
+
+
+def ntt_sass(kernels):
+    """{k1, k2: static SASS instruction count and the commonest opcodes}
+    of the size-2^9 NTT kernels, the main path's sub-transforms (cuobjdump
+    of the built library). The kernel is unrolled, so the count is about
+    what one thread issues."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(kernels.so_path("ntt"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = None
+            for key, tag in (("k1", "ILi9ELb1E"), ("k2", "ILi9ELb0E")):
+                if tag in line:
+                    cur = counts.setdefault(key, collections.Counter())
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                      line)
+        if cur is not None and op:
+            cur[op.group(1)] += 1
+    return {k: {"total": sum(c.values()), **dict(c.most_common(8))}
+            for k, c in sorted(counts.items())}
 
 
 def phase_card(torch, kernels):
@@ -81,19 +140,29 @@ def phase_card(torch, kernels):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(smi, flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    peak = sms * INT_LANES_PER_SM * clock_mhz * 1e6
     t0 = time.perf_counter()
     report = kernels.build_all()
     regs = {}
     for name, (_, out) in report.items():
-        regs[name] = [ln.strip() for ln in out.splitlines()
-                      if "registers" in ln or "spill" in ln]
-    emit({"phase": "card", "nvidia_smi": smi,
+        regs[name] = [ln.strip().replace("ptxas info    : ", "")
+                      for ln in out.splitlines()
+                      if "registers" in ln or "spill" in ln
+                      or "entry function" in ln]
+    emit({"phase": "card", "nvidia_smi": smi, "sms": sms,
+          "max_sm_clock_mhz": clock_mhz, "int_ops_per_s": peak,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(time.perf_counter() - t0, 3),
-          "built": sorted(report), "ptxas": regs})
-    return smi
+          "built": sorted(report), "ptxas": regs,
+          "ntt_sass": ntt_sass(kernels)})
+    return peak
 
 
 def _rand_words(torch, rng, shape, P):
@@ -103,9 +172,10 @@ def _rand_words(torch, rng, shape, P):
     return torch.from_numpy(x).to(torch.int32).cuda()
 
 
-def phase_kernels(torch, np):
+def phase_kernels(torch, np, peak):
     """Every kernel against its plain version; returns the per-kernel
     records of the main-path shapes."""
+    from plonky3_tpu_torch import kernels
     from plonky3_tpu_torch.fields import KoalaBear as F
     from plonky3_tpu_torch.hashes import keccak_cuda as kc
     from plonky3_tpu_torch.ops import ntt_cuda as nc
@@ -123,54 +193,66 @@ def phase_kernels(torch, np):
         return err
 
     # NTT: (log_n, w, inverse, zero_top); the first four are the main
-    # path's shapes (trace iDFT and LDE, quotient-chunk iDFT and LDE).
+    # path's shapes (trace iDFT and LDE, quotient-chunk iDFT and LDE),
+    # the last three go through more than one level of the plan.
     ntt_cases = [(17, 1312, True, False), (18, 1312, False, True),
                  (17, 4, True, False), (18, 4, False, True),
                  (1, 5, False, False), (1, 5, True, True),
                  (6, 5, False, False), (6, 5, True, False),
                  (6, 5, False, True), (9, 128, False, False),
                  (9, 128, True, False), (9, 128, False, True),
-                 (13, 200, False, False)]
+                 (13, 200, False, False), (21, 4, False, True),
+                 (21, 4, True, False), (22, 3, False, False)]
     for log_n, w, inverse, zero_top in ntt_cases:
         rows = (1 << log_n) >> 1 if zero_top else 1 << log_n
         x = _rand_words(torch, rng, (rows, w), F.P)
+        before = dict(kernels.LAUNCHES)
         got = nc.dif_fused(F, x, log_n, inverse, zero_top)
+        ran = {k: kernels.LAUNCHES[k] - before[k]
+               for k in ("ntt_k1", "ntt_k2")}
         want = nc.dif_fused_plain(F, x, log_n, inverse, zero_top)
         err = compare(f"ntt {log_n} {w}", got, want)
+        steps = nc.plan(log_n, zero_top)
+        planned = {f"ntt_{k}": sum(s.kernel == k for s in steps)
+                   for k in ("k1", "k2")}
+        if ran != planned:
+            raise AssertionError(f"ntt {log_n} {w}: launched {ran}, "
+                                 f"planned {planned}")
         rec = {"log_n": log_n, "w": w, "inverse": inverse,
-               "zero_top": zero_top, "max_abs_err": err}
-        if log_n >= 17:
+               "zero_top": zero_top, "k1_launches": ran["ntt_k1"],
+               "k2_launches": ran["ntt_k2"], "max_abs_err": err}
+        if log_n in (17, 18):
             n = 1 << log_n
-            log_a, log_b = nc.split(log_n)
-            y1 = nc.launch_k1(F, x, log_n, inverse, zero_top)
+            s1, s2 = steps
+            log_a, log_b = s1.log_a, s1.log_b
+            y1 = torch.empty((n, w), dtype=torch.int32, device=x.device)
             out = torch.empty_like(y1)
-            k1 = cuda_ms(torch, lambda: nc.launch_k1(
-                F, x, log_n, inverse, zero_top), 10)
-            k2 = cuda_ms(torch, lambda: nc.launch_k2(
-                F, y1, out, log_n, inverse), 10)
+            k1 = cuda_ms(torch, lambda: nc.launch(F, s1, x, y1, inverse), 10)
+            k2 = cuda_ms(torch, lambda: nc.launch(F, s2, y1, out, inverse),
+                         10)
             plain = cuda_ms(torch, lambda: nc.dif_fused_plain(
                 F, x, log_n, inverse, zero_top), 2)
-            b1 = bound_ms(4 * (rows * w + n * w + 2 * n + (1 << log_a)),
-                          n // 2 * log_a * w * BUTTERFLY_OPS
-                          + n * w * SHOUP_OPS)
-            b2 = bound_ms(4 * (2 * n * w + (1 << log_b)),
-                          n // 2 * log_b * w * BUTTERFLY_OPS)
+            # k1: with zero_top, stage 0 is one Shoup product per pair
+            pairs = n // 2 * w
+            zt = pairs if zero_top else 0
+            b1 = bound_ms(peak, 4 * (rows * w + n * w + 2 * n + (1 << log_a)),
+                          *ntt_ops(pairs * log_a - zt, zt + n * w))
+            b2 = bound_ms(peak, 4 * (2 * n * w + (1 << log_b)),
+                          *ntt_ops(pairs * log_b, 0))
+            sh1, sh2 = share("ntt_k1", b1[0], k1), share("ntt_k2", b2[0], k2)
             rec.update(k1_ms=k1, k2_ms=k2, plain_ms=plain,
-                       k1_bound_ms=b1[0], k2_bound_ms=b2[0])
+                       k1_bound_ms=b1[0], k1_bound_by=b1[1], k1_share=sh1,
+                       k2_bound_ms=b2[0], k2_bound_by=b2[1], k2_share=sh2)
             if (log_n, w) == (18, 1312):
                 src = "plonky3_tpu_torch/csrc/ntt.cu"
-                records["ntt_k1"] = dict(
-                    name="ntt_k1", route="cuda", source=src,
-                    replaces="plonky3_tpu/ops/ntt_pallas.py:149",
-                    max_abs_err=err, ms=k1, plain_ms=plain,
-                    bound_ms=b1[0], bound_by=b1[1], library_ms=None,
-                    shape=[log_n, w, "zero_top"])
-                records["ntt_k2"] = dict(
-                    name="ntt_k2", route="cuda", source=src,
-                    replaces="plonky3_tpu/ops/ntt_pallas.py:158",
-                    max_abs_err=err, ms=k2, plain_ms=plain,
-                    bound_ms=b2[0], bound_by=b2[1], library_ms=None,
-                    shape=[log_n, w, "zero_top"])
+                for name, ms, b, sh, line in (("ntt_k1", k1, b1, sh1, 149),
+                                              ("ntt_k2", k2, b2, sh2, 158)):
+                    records[name] = dict(
+                        name=name, route="cuda", source=src,
+                        replaces=f"plonky3_tpu/ops/ntt_pallas.py:{line}",
+                        max_abs_err=err, ms=ms, plain_ms=plain,
+                        bound_ms=b[0], bound_by=b[1], library_ms=None,
+                        share=sh, shape=[log_n, w, "zero_top"])
         emit({"phase": "kernels", "kernel": "ntt", **rec})
 
     src = "plonky3_tpu_torch/csrc/keccak.cu"
@@ -186,14 +268,16 @@ def phase_kernels(torch, np):
             ms = cuda_ms(torch, lambda: kc.keccak_sponge_rows(flat), 10)
             plain = cuda_ms(torch, lambda: kc.keccak_sponge_rows_plain(flat),
                             1)
-            b = bound_ms(4 * h * (w + 8), h * nb * KECCAK_F_OPS)
-            rec.update(ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1])
+            b = bound_ms(peak, 4 * h * (w + 8), h * nb * KECCAK_F_ALU)
+            rec.update(ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                       share=share(f"sponge {w}", b[0], ms))
             if w == 1312:
                 records["keccak_sponge"] = dict(
                     name="keccak_sponge", route="cuda", source=src,
                     replaces="plonky3_tpu/hashes/keccak_pallas.py:124",
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
-                    bound_by=b[1], library_ms=None, shape=[h, w])
+                    bound_by=b[1], library_ms=None, share=rec["share"],
+                    shape=[h, w])
         emit({"phase": "kernels", "kernel": "keccak_sponge", **rec})
 
     for h in [1 << 17, 1, 3, 1000]:
@@ -207,13 +291,15 @@ def phase_kernels(torch, np):
             ms = cuda_ms(torch, lambda: kc.keccak_compress(left, right), 20)
             plain = cuda_ms(torch,
                             lambda: kc.keccak_compress_plain(left, right), 2)
-            b = bound_ms(4 * h * 24, h * KECCAK_F_OPS)
-            rec.update(ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1])
+            b = bound_ms(peak, 4 * h * 24, h * KECCAK_F_ALU)
+            rec.update(ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                       share=share("compress", b[0], ms))
             records["keccak_compress"] = dict(
                 name="keccak_compress", route="cuda", source=src,
                 replaces="plonky3_tpu/hashes/keccak_pallas.py:124",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
-                bound_by=b[1], library_ms=None, shape=[h, 8])
+                bound_by=b[1], library_ms=None, share=rec["share"],
+                shape=[h, 8])
         emit({"phase": "kernels", "kernel": "keccak_compress", **rec})
     return records
 
@@ -331,10 +417,14 @@ def profile_prove(torch, prove, config, air, trace, warm_s):
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA), reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    ours = ("ntt_kernel", "sponge_rows_kernel", "compress_kernel")
     emit({"phase": "profile", "device_busy_s": busy_s,
           "warm_prove_s": warm_s, "device_idle_share": 1 - busy_s / warm_s,
           "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": c}
-                  for us, k, c in rows[:12]]})
+                  for us, k, c in rows[:12]],
+          "port_kernels": [{"kernel": k[:70], "ms": us / 1e3, "calls": c}
+                           for us, k, c in rows
+                           if any(o in k for o in ours)]})
 
 
 def main(argv=None) -> int:
@@ -348,8 +438,8 @@ def main(argv=None) -> int:
         return 1
     from plonky3_tpu_torch import kernels
 
-    phase_card(torch, kernels)
-    records = phase_kernels(torch, np)
+    peak = phase_card(torch, kernels)
+    records = phase_kernels(torch, np, peak)
     phase_small(torch, np)
     launches = phase_full(torch, np, kernels)
     for name, rec in records.items():

@@ -35,8 +35,8 @@ _U = ctypes.c_uint32
 # C signatures: every entry returns the cudaError_t of its launch.
 _SIGNATURES = {
     "ntt": {
-        "ntt_k1": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _P],
-        "ntt_k2": [_P, _P, _P, _I, _I, _I, _U, _P],
+        "ntt_k1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _U, _P],
+        "ntt_k2": [_P, _P, _P, _I, _I, _I, _I, _L, _U, _P],
     },
     "keccak": {
         "keccak_sponge_rows": [_P, _P, _L, _I, _P],
@@ -59,7 +59,7 @@ def _nvcc() -> str:
     return path
 
 
-def _so_path(name: str) -> Path:
+def so_path(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
@@ -67,7 +67,7 @@ def _so_path(name: str) -> Path:
 
 def _start_build(name: str):
     """Start nvcc for one source; returns (process, tmp path, target)."""
-    so = _so_path(name)
+    so = so_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
@@ -92,7 +92,7 @@ def build_all() -> dict:
     t0 = time.perf_counter()
     started = {}
     for name in _SIGNATURES:
-        if not _so_path(name).exists():
+        if not so_path(name).exists():
             started[name] = _start_build(name)
     report = {}
     for name, (proc, tmp, so) in started.items():
@@ -106,7 +106,7 @@ def lib(name: str):
     hit = _LIBS.get(name)
     if hit is not None:
         return hit
-    so = _so_path(name)
+    so = so_path(name)
     if not so.exists():
         _finish_build(name, *_start_build(name))
     handle = ctypes.CDLL(str(so))

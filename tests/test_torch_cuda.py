@@ -31,7 +31,7 @@ def _words(rng, shape, bound, device):
 
 @pytest.mark.parametrize("log_n,w,inverse,zero_top", [
     (1, 3, False, False), (2, 1, True, False), (7, 33, False, True),
-    (10, 64, True, False), (11, 5, False, True)])
+    (10, 64, True, False), (11, 5, False, True), (21, 2, False, True)])
 def test_ntt_kernels_match_plain(cuda, log_n, w, inverse, zero_top):
     from plonky3_tpu_torch.ops.ntt_cuda import dif_fused, dif_fused_plain
 
