@@ -14,21 +14,28 @@ Phases, each printed as one JSON line:
   kernels  each kernel against its plain PyTorch version on the card, bit
            for bit, at the main path's shapes and at small ones (NTTs up
            to 2^22 rows, each with the k1 and k2 launches it made, which
-           must match ntt_cuda.plan), with the median kernel time, the
-           plain version's
-           time, the kernel's bound (the least time for its bytes or for
-           the busier integer pipe's operations on this card) and its
-           share (bound / time; above 1.05 the count is wrong and the
-           script fails);
+           must match ntt_cuda.plan; the Merkle ladder from 2 to 2^18
+           digests, with its launches against keccak_cuda.ladder_plan),
+           with the median kernel time, the plain version's time, the
+           kernel's bound (the least time for its bytes or for the
+           busier integer pipe's operations on this card) and its share
+           (bound / time; above 1.05 the count is wrong and the script
+           fails); at 2^18 leaves also the per-level compress route that
+           the ladder replaced;
+  mixed    a commit of mixed-height matrices (injection levels through
+           keccak_compress, the rest through the ladder) on CUDA equals
+           the same commit on the CPU, with its launch counts;
   small    prove() on CUDA equals prove() on the CPU (plain versions) for
            Poseidon2VectorAir(KoalaBear, 16, vector_len=8) at 2^8 rows;
   full     the benchmark workload: 2^20 Poseidon2 permutations, a
            2^17 x 1312 trace, keccak config, FriParameters
            .new_benchmark_high_arity(); two proves, the second timed, with
            the kernel launch counts of that prove; then a prove with
-           per-stage spans ("spans") and one under torch.profiler
+           per-stage spans ("spans") that also records every kernel
+           launch's shape ("per_proof": each kernel's launches and bound
+           summed over one proof), and one under torch.profiler
            ("profile": device time by kernel, the port's own kernels
-           listed apart, device idle share).
+           listed apart, the compressor's time, device idle share).
 Before the last line: one JSON object listing every kernel. The last line
 is {"ok": true, "device": {...}}. Any mismatch or error exits nonzero and
 prints no result. Imports nothing of JAX or of plonky3_tpu.
@@ -74,6 +81,25 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def profiled_ms(torch, fn, reps: int, tag: str = "") -> float:
+    """Device milliseconds of fn() per run: the summed time of the CUDA
+    kernels whose name holds `tag` (every kernel for ""), under
+    torch.profiler over reps runs after one warm-up. Unlike cuda_ms it
+    leaves out the gaps in which the device waits for the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and tag in ev.key
+               ) / 1e3 / reps
+
+
 def bound_ms(peak, n_bytes: float, alu_ops: float, mul_ops: float = 0):
     """The least time for the work and what sets it: the bytes over the
     HBM rate, or the busier integer pipe over `peak` ops/s."""
@@ -108,6 +134,81 @@ def ntt_ops(butterflies: int, shoups: int):
     the product's IMAD.HI, IMUL and IMAD (3 multiplies); a lone product
     is 1 ALU + 3 multiplies."""
     return 5 * butterflies + shoups, 3 * (butterflies + shoups)
+
+
+def ntt_bound(peak, kernel, log_a, log_b, w, zero_top, batch=1):
+    """Bound of one k1 or k2 launch: `batch` transforms of 2^(log_a +
+    log_b) rows × w words, their tables read once. k1 reads the input
+    (half the rows with zero_top), its twiddles and the (std, Shoup)
+    correction; with zero_top its stage 0 is one Shoup product per pair."""
+    n = 1 << (log_a + log_b)
+    pairs = n // 2 * w
+    if kernel == "k1":
+        rows = n // 2 if zero_top else n
+        zt = pairs if zero_top else 0
+        return bound_ms(peak, 4 * (batch * (rows * w + n * w) + 2 * n
+                                   + (1 << log_a)),
+                        *(batch * c for c in ntt_ops(pairs * log_a - zt,
+                                                     zt + n * w)))
+    return bound_ms(peak, 4 * (batch * 2 * n * w + (1 << log_b)),
+                    *(batch * c for c in ntt_ops(pairs * log_b, 0)))
+
+
+def sponge_bound(peak, h, w):
+    """Leaf sponge over (h, w) words: ceil(ceil(w/2) / 17) keccak-f a row."""
+    nb = -(-((w + 1) // 2) // 17)
+    return bound_ms(peak, 4 * h * (w + 8), h * nb * KECCAK_F_ALU)
+
+
+def compress_bound(peak, h):
+    """One level of h nodes: 16 words in and 8 out per node."""
+    return bound_ms(peak, 4 * h * 24, h * KECCAK_F_ALU)
+
+
+def ladder_bound(peak, m, nodes):
+    """Ladder over m digests writing `nodes` nodes (m - 1 to the root)."""
+    return bound_ms(peak, 32 * (m + nodes), nodes * KECCAK_F_ALU)
+
+
+class LaunchRecorder:
+    """Stands in for a loaded kernel library (`kernels._LIBS[name]`) and
+    records the arguments of every C entry called through it."""
+
+    def __init__(self, lib, calls):
+        self._lib, self._calls = lib, calls
+
+    def __getattr__(self, fn):
+        f = getattr(self._lib, fn)
+
+        def call(*args):
+            self._calls.append((fn, args))
+            return f(*args)
+
+        return call
+
+
+def launch_bounds(peak, calls):
+    """{record name: {launches, bound_ms}} summed over recorded launches
+    (the C entries' arguments: sizes, widths, levels)."""
+    out = collections.defaultdict(lambda: {"launches": 0, "bound_ms": 0.0})
+    for fn, a in calls:
+        if fn == "ntt_k1":
+            name, b = "ntt_k1", ntt_bound(peak, "k1", a[4], a[5], a[6],
+                                          bool(a[7]), a[8])
+        elif fn == "ntt_k2":
+            name, b = "ntt_k2", ntt_bound(peak, "k2", a[3], a[4], a[5],
+                                          False, a[6])
+        elif fn == "keccak_sponge_rows":
+            name, b = "keccak_sponge", sponge_bound(peak, a[2], a[3])
+        elif fn == "keccak_compress":
+            name, b = "keccak_compress", compress_bound(peak, a[3])
+        else:
+            m, levels = a[2], a[3]
+            name, b = "keccak_ladder", ladder_bound(peak, m,
+                                                     m - (m >> levels))
+        out[name]["launches"] += 1
+        out[name]["bound_ms"] += b[0]
+    return dict(out)
 
 
 def ntt_sass(kernels):
@@ -178,6 +279,8 @@ def phase_kernels(torch, np, peak):
     from plonky3_tpu_torch import kernels
     from plonky3_tpu_torch.fields import KoalaBear as F
     from plonky3_tpu_torch.hashes import keccak_cuda as kc
+    from plonky3_tpu_torch.hashes.keccak_sponge import KeccakCompressor
+    from plonky3_tpu_torch.merkle.mmcs import levels_by_compress
     from plonky3_tpu_torch.ops import ntt_cuda as nc
 
     rng = np.random.default_rng(5)
@@ -232,13 +335,8 @@ def phase_kernels(torch, np, peak):
                          10)
             plain = cuda_ms(torch, lambda: nc.dif_fused_plain(
                 F, x, log_n, inverse, zero_top), 2)
-            # k1: with zero_top, stage 0 is one Shoup product per pair
-            pairs = n // 2 * w
-            zt = pairs if zero_top else 0
-            b1 = bound_ms(peak, 4 * (rows * w + n * w + 2 * n + (1 << log_a)),
-                          *ntt_ops(pairs * log_a - zt, zt + n * w))
-            b2 = bound_ms(peak, 4 * (2 * n * w + (1 << log_b)),
-                          *ntt_ops(pairs * log_b, 0))
+            b1 = ntt_bound(peak, "k1", log_a, log_b, w, zero_top)
+            b2 = ntt_bound(peak, "k2", log_a, log_b, w, zero_top)
             sh1, sh2 = share("ntt_k1", b1[0], k1), share("ntt_k2", b2[0], k2)
             rec.update(k1_ms=k1, k2_ms=k2, plain_ms=plain,
                        k1_bound_ms=b1[0], k1_bound_by=b1[1], k1_share=sh1,
@@ -264,11 +362,10 @@ def phase_kernels(torch, np, peak):
         err = compare(f"sponge {h} {w}", got, want)
         rec = {"h": h, "w": w, "max_abs_err": err}
         if h >= 1 << 18:
-            nb = -(-((w + 1) // 2) // kc.RATE)
             ms = cuda_ms(torch, lambda: kc.keccak_sponge_rows(flat), 10)
             plain = cuda_ms(torch, lambda: kc.keccak_sponge_rows_plain(flat),
                             1)
-            b = bound_ms(peak, 4 * h * (w + 8), h * nb * KECCAK_F_ALU)
+            b = sponge_bound(peak, h, w)
             rec.update(ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1],
                        share=share(f"sponge {w}", b[0], ms))
             if w == 1312:
@@ -291,17 +388,95 @@ def phase_kernels(torch, np, peak):
             ms = cuda_ms(torch, lambda: kc.keccak_compress(left, right), 20)
             plain = cuda_ms(torch,
                             lambda: kc.keccak_compress_plain(left, right), 2)
-            b = bound_ms(peak, 4 * h * 24, h * KECCAK_F_ALU)
+            b = compress_bound(peak, h)
             rec.update(ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1],
                        share=share("compress", b[0], ms))
             records["keccak_compress"] = dict(
                 name="keccak_compress", route="cuda", source=src,
-                replaces="plonky3_tpu/hashes/keccak_pallas.py:124",
+                replaces="plonky3_tpu/hashes/keccak_pallas.py:227",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
                 bound_by=b[1], library_ms=None, share=rec["share"],
                 shape=[h, 8])
         emit({"phase": "kernels", "kernel": "keccak_compress", **rec})
+
+    # Merkle ladder: one 2^18-leaf tree (the main path's), a two-launch
+    # 2^15, exactly one subtree (2^9), a partial block (2^8, 2^3), 2.
+    comp = KeccakCompressor()
+    for log_n in (18, 15, 9, 8, 3, 1):
+        n = 1 << log_n
+        d = _rand_words(torch, rng, (n, 8), 1 << 32)
+        before = kernels.LAUNCHES["keccak_ladder"]
+        got = kc.keccak_merkle_ladder(d)
+        ran = kernels.LAUNCHES["keccak_ladder"] - before
+        want = kc.keccak_merkle_ladder_plain(d)
+        err = compare(f"ladder {n}", got, want)
+        if ran != len(kc.ladder_plan(n)):
+            raise AssertionError(f"ladder {n}: launched {ran}, planned "
+                                 f"{len(kc.ladder_plan(n))}")
+        rec = {"n": n, "launches": ran, "max_abs_err": err}
+        if log_n == 18:
+            # ms: the ladder kernel's device time; *_wall_ms: CUDA events
+            # around the Python call, host dispatch gaps included
+            ladder = lambda: kc.keccak_merkle_ladder(d)  # noqa: E731
+            ms = profiled_ms(torch, ladder, 20, "merkle_ladder_kernel")
+            wall = cuda_ms(torch, ladder, 20)
+            leaves = d.to(torch.int64) & 0xFFFFFFFF
+            # the route it replaced: one compress_device call per level
+            old = lambda: levels_by_compress(comp, leaves)  # noqa: E731
+            old_wall = cuda_ms(torch, old, 10)
+            old_dev = profiled_ms(torch, old, 5)
+            route = cuda_ms(torch, lambda: comp.ladder_device(d), 10)
+            plain = cuda_ms(torch, lambda: kc.keccak_merkle_ladder_plain(d),
+                            1)
+            b = ladder_bound(peak, n, n - 1)
+            rec.update(ms=ms, wall_ms=wall, plain_ms=plain,
+                       per_level_route_device_ms=old_dev,
+                       per_level_route_wall_ms=old_wall,
+                       ladder_device_wall_ms=route,
+                       speedup_device=old_dev / ms,
+                       speedup_wall=old_wall / wall,
+                       bound_ms=b[0], bound_by=b[1],
+                       share=share("ladder", b[0], ms))
+            records["keccak_ladder"] = dict(
+                name="keccak_ladder", route="cuda", source=src,
+                replaces="plonky3_tpu/hashes/keccak_pallas.py:227",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
+                bound_by=b[1], library_ms=None, share=rec["share"],
+                per_level_route_device_ms=old_dev, shape=[n, 8])
+        emit({"phase": "kernels", "kernel": "keccak_ladder", **rec})
     return records
+
+
+def phase_mixed(torch, np, kernels):
+    """A commit of mixed-height matrices on CUDA equals the CPU's: the
+    injection levels run keccak_compress, the levels between them the
+    ladder. Returns the launch counts of the CUDA commit."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.hashes.keccak_sponge import (
+        KeccakCompressor, KeccakFieldSponge)
+    from plonky3_tpu_torch.merkle.mmcs import MerkleTreeMmcs
+
+    rng = np.random.default_rng(40)
+    mats = [F.rand_np(rng, s).astype(np.int64)
+            for s in [(32, 3), (32, 4), (8, 7), (2, 1)]]
+    mmcs = MerkleTreeMmcs(KeccakFieldSponge(F), KeccakCompressor())
+    kernels.reset_launches()
+    got = mmcs.commit([torch.from_numpy(m).cuda() for m in mats])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = mmcs.commit([torch.from_numpy(m) for m in mats])
+    if (got.commitment != want.commitment or len(got.layers)
+            != len(want.layers) or not all(
+                torch.equal(g.cpu(), w)
+                for g, w in zip(got.layers, want.layers))):
+        raise AssertionError("the mixed-height commit on CUDA differs "
+                             "from the CPU's")
+    for k in ("keccak_sponge", "keccak_compress", "keccak_ladder"):
+        if launches[k] == 0:
+            raise AssertionError(f"mixed-height commit: {k} not launched")
+    emit({"phase": "mixed", "shapes": [list(m.shape) for m in mats],
+          "cuda_equals_cpu": True, "launches": launches})
+    return launches
 
 
 def as_plain(x):
@@ -353,10 +528,15 @@ def phase_small(torch, np):
           "cpu_s": secs["cpu"]})
 
 
-def phase_full(torch, np, kernels):
-    """The benchmark workload; returns the timed prove's launch counts.
-    A third prove collects per-stage spans and a fourth runs under
-    torch.profiler."""
+# the kernels the main path must launch
+MAIN_PATH = ("ntt_k1", "ntt_k2", "keccak_sponge", "keccak_ladder")
+
+
+def phase_full(torch, np, kernels, peak):
+    """The benchmark workload; returns the timed prove's launch counts,
+    the per-proof bounds and the profiled device time by kernel. A third
+    prove collects per-stage spans and records every launch's shape; a
+    fourth runs under torch.profiler."""
     from plonky3_tpu_torch.fri.config import FriParameters
     from plonky3_tpu_torch.stark.prover import prove
 
@@ -377,7 +557,7 @@ def phase_full(torch, np, kernels):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched by prove: {missing}")
     if as_plain(first) != as_plain(proof):
@@ -396,16 +576,25 @@ def phase_full(torch, np, kernels):
           "perms_per_s": n_perms / warm_s,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
           "launches": launches})
-    spans = {}
-    prove(config, air, trace, [], spans=spans)
+    spans, calls = {}, []
+    real = dict(kernels._LIBS)
+    kernels._LIBS.update({k: LaunchRecorder(v, calls)
+                          for k, v in real.items()})
+    try:
+        prove(config, air, trace, [], spans=spans)
+    finally:
+        kernels._LIBS.update(real)
     emit({"phase": "spans", "seconds": spans})
-    profile_prove(torch, prove, config, air, trace, warm_s)
-    return launches
+    per_proof = launch_bounds(peak, calls)
+    emit({"phase": "per_proof", "kernels": per_proof})
+    device_ms = profile_prove(torch, prove, config, air, trace, warm_s)
+    return launches, per_proof, device_ms
 
 
 def profile_prove(torch, prove, config, air, trace, warm_s):
     """One prove under torch.profiler: device time by kernel, and the
-    device's busy share of the unprofiled warm prove's wall time."""
+    device's busy share of the unprofiled warm prove's wall time.
+    Returns the port's kernels' device ms by record name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -417,14 +606,34 @@ def profile_prove(torch, prove, config, air, trace, warm_s):
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA), reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
-    ours = ("ntt_kernel", "sponge_rows_kernel", "compress_kernel")
+    ours = ("ntt_kernel", "sponge_rows_kernel", "compress_kernel",
+            "merkle_ladder_kernel")
+    device_ms, calls = collections.Counter(), collections.Counter()
+    for us, k, c in rows:
+        for name, tags in PROFILE_NAMES.items():
+            if all(t in k for t in tags):
+                device_ms[name] += us / 1e3
+                calls[name] += c
+    compressor = ("keccak_ladder", "keccak_compress")
     emit({"phase": "profile", "device_busy_s": busy_s,
           "warm_prove_s": warm_s, "device_idle_share": 1 - busy_s / warm_s,
           "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": c}
                   for us, k, c in rows[:12]],
           "port_kernels": [{"kernel": k[:70], "ms": us / 1e3, "calls": c}
                            for us, k, c in rows
-                           if any(o in k for o in ours)]})
+                           if any(o in k for o in ours)],
+          "compressor_ms": sum(device_ms[k] for k in compressor),
+          "compressor_launches": sum(calls[k] for k in compressor),
+          "device_ms": dict(device_ms)})
+    return dict(device_ms)
+
+
+# profiler kernel names of each record: every tag must appear
+PROFILE_NAMES = {"ntt_k1": ("ntt_kernel<", "true>"),
+                 "ntt_k2": ("ntt_kernel<", "false>"),
+                 "keccak_sponge": ("sponge_rows_kernel",),
+                 "keccak_compress": ("compress_kernel",),
+                 "keccak_ladder": ("merkle_ladder_kernel",)}
 
 
 def main(argv=None) -> int:
@@ -440,10 +649,16 @@ def main(argv=None) -> int:
 
     peak = phase_card(torch, kernels)
     records = phase_kernels(torch, np, peak)
+    mixed = phase_mixed(torch, np, kernels)
     phase_small(torch, np)
-    launches = phase_full(torch, np, kernels)
+    launches, per_proof, device_ms = phase_full(torch, np, kernels, peak)
     for name, rec in records.items():
         rec["launches"] = launches[name]
+        rec["launches_mixed_commit"] = mixed[name]
+        if name in per_proof:
+            rec["proof_bound_ms"] = per_proof[name]["bound_ms"]
+        if name in device_ms:
+            rec["proof_ms"] = device_ms[name]
     emit({"kernels": [records[k] for k in sorted(records)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

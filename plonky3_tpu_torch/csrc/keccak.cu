@@ -1,4 +1,5 @@
-// Keccak-f[1600] Merkle leaf sponge and 2-to-1 compressor, for Hopper (sm_90a).
+// Keccak-f[1600] Merkle leaf sponge, 2-to-1 compressor and Merkle ladder,
+// for Hopper (sm_90a).
 //
 // Replaces the TPU kernel of plonky3_tpu/hashes/keccak_pallas.py:
 // `_sponge_kernel` (with `_keccakf`, `_round`, `_rotl64`), launched by
@@ -12,13 +13,35 @@
 // (left || right) as one block.
 //
 // Bound: integer operations. At the bench size the trace leaves alone are
-// 2^18 rows × 39 permutations (~10^7 keccak-f of ~3,700 64-bit ops each);
-// the matrix is read once (1.38 GB). Design: one thread per row, the
-// 25-lane state in 64-bit registers across all blocks and all 24 unrolled
-// rounds, so device memory sees only the row words and the 32-byte digest.
-// Rows are strided by 4·w bytes, so this first version's loads are not
-// coalesced across a warp; staging row tiles through shared memory is
-// later work.
+// 2^18 rows × 39 permutations (~10^7 keccak-f of ~4,300 32-bit
+// instructions each); the matrix is read once (1.38 GB). Design: one
+// thread per row or node, the 25-lane state in 64-bit registers across
+// all blocks and all 24 unrolled rounds, so device memory sees only the
+// row words and the 32-byte digest. Rows are strided by 4·w bytes, so the
+// sponge's loads are not coalesced across a warp; staging row tiles
+// through shared memory is later work.
+//
+// Three kernels:
+// - `sponge_rows_kernel`: the leaf hash, one thread per row.
+// - `compress_kernel`: one tree level, compress(left[i], right[i]); kept
+//   for the level where a shorter matrix is injected.
+// - `merkle_ladder_kernel` (replaces `keccak_compress_pallas`, launched
+//   once per tree level): several levels of a tree in one launch. A block
+//   owns a subtree of 2 × LADDER_NODES children. At a level of more
+//   nodes than the block has warps, each of its LADDER_THREADS threads
+//   compresses nodes t, t + LADDER_THREADS, ... (the two children of a
+//   node are 64 contiguous bytes, four 16-byte loads) and writes each
+//   digest to its level in device memory and to shared memory; after a
+//   barrier the next level reads its children from shared memory. One
+//   launch writes up to log2(LADDER_NODES) + 1 = 10 levels, so a
+//   2^18-leaf tree takes two launches where `compress_kernel` took 18,
+//   and its first launch (256 blocks) fits the card in one wave.
+//   Every level waits for the one below, so the levels near the root run
+//   on one SM with a few nodes each: a node in one thread costs one
+//   warp's ALU issue of a whole keccak-f (about 4,550 SASS instructions at
+//   16 lanes a clock, 4.6 µs). A level of at most LADDER_WARPS nodes
+//   therefore runs a node per warp (`keccak_f_warp`, one state lane per
+//   thread, shuffles between them).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -27,6 +50,11 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int RATE = 17;
+// A ladder block owns a subtree of 2 * LADDER_NODES children
+// (hashes/keccak_cuda.py LADDER_LOG_NODES is log2 LADDER_NODES).
+constexpr int LADDER_NODES = 512;
+constexpr int LADDER_THREADS = 256;
+constexpr int LADDER_WARPS = LADDER_THREADS / 32;
 
 __constant__ uint64_t RC[24] = {
     0x0000000000000001ULL, 0x0000000000008082ULL, 0x800000000000808AULL,
@@ -137,6 +165,134 @@ compress_kernel(const uint32_t* __restrict__ left, const uint32_t* __restrict__ 
     write_digest(out + row * 8, st);
 }
 
+// rho rotation of state lane x + 5y
+__constant__ int RHO[25] = {0,  1,  62, 28, 27, 36, 44, 6,  55, 20, 3,  10, 43,
+                            25, 39, 41, 45, 15, 21, 8,  18, 2,  61, 56, 14};
+
+// 64-bit rotate left by a per-thread amount r in [0, 64).
+__device__ __forceinline__ uint64_t rotl_var(uint64_t v, int r) {
+    uint32_t lo = (uint32_t)v, hi = (uint32_t)(v >> 32);
+    if (r & 32) {
+        const uint32_t t = lo;
+        lo = hi;
+        hi = t;
+    }
+    const uint32_t nhi = __funnelshift_l(lo, hi, r);
+    const uint32_t nlo = __funnelshift_l(hi, lo, r);
+    return ((uint64_t)nhi << 32) | nlo;
+}
+
+// keccak-f with the state spread over a warp: lane l < 25 holds state lane
+// l = x + 5y. A round is two rounds of shuffles: theta's parities of the
+// columns x - 1 and x + 1 (ten lanes), then, after each lane applies its
+// own rho rotation, the three lanes that pi moves to (x, y), (x + 1, y) and
+// (x + 2, y), which chi combines. A lane issues about 50 instructions a
+// round where one thread with the whole state issues about 190, so a node
+// takes a fraction of the time on an otherwise idle SM. Lanes 25..31
+// compute on copies that no lane reads.
+__device__ __forceinline__ uint64_t keccak_f_warp(uint64_t a, int lane) {
+    constexpr unsigned ALL = 0xffffffffu;
+    const int l = lane < 25 ? lane : lane - 25;
+    const int x = l % 5, y = l / 5;
+    const int xm1 = (x + 4) % 5, xp1 = (x + 1) % 5, xp2 = (x + 2) % 5;
+    // pi: B[X][Y] = rot(A[x'][y']) with (X, Y) = (y', 2x' + 3y')
+    const int pi0 = (x + 3 * y) % 5 + 5 * x, pi1 = (xp1 + 3 * y) % 5 + 5 * xp1,
+              pi2 = (xp2 + 3 * y) % 5 + 5 * xp2;
+    const int rho = RHO[l];
+#pragma unroll 1
+    for (int r = 0; r < 24; ++r) {
+        uint64_t cm = 0, cp = 0;
+#pragma unroll
+        for (int k = 0; k < 25; k += 5) {
+            cm ^= __shfl_sync(ALL, a, xm1 + k);
+            cp ^= __shfl_sync(ALL, a, xp1 + k);
+        }
+        const uint64_t ra = rotl_var(a ^ cm ^ rotl(cp, 1), rho);
+        const uint64_t b0 = __shfl_sync(ALL, ra, pi0), b1 = __shfl_sync(ALL, ra, pi1),
+                       b2 = __shfl_sync(ALL, ra, pi2);
+        a = b0 ^ (~b1 & b2);
+        if (lane == 0) a ^= RC[r];
+    }
+    return a;
+}
+
+// One tree node: keccak-f over the 8 lanes of its two children's 16
+// words c (lane k = words 2k, 2k+1) and 17 zero lanes; d gets the digest.
+__device__ __forceinline__ void compress_node(const uint4 (&c)[4], uint4 (&d)[2]) {
+    uint64_t st[25];
+#pragma unroll
+    for (int i = 0; i < 25; ++i) st[i] = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        st[2 * k] = (uint64_t)c[k].x | ((uint64_t)c[k].y << 32);
+        st[2 * k + 1] = (uint64_t)c[k].z | ((uint64_t)c[k].w << 32);
+    }
+    keccak_f(st);
+    d[0] = make_uint4((uint32_t)st[0], (uint32_t)(st[0] >> 32), (uint32_t)st[1],
+                      (uint32_t)(st[1] >> 32));
+    d[1] = make_uint4((uint32_t)st[2], (uint32_t)(st[2] >> 32), (uint32_t)st[3],
+                      (uint32_t)(st[3] >> 32));
+}
+
+// src: m digests (2 uint4 each), m a power of two >= 2. dst: the next
+// `levels` levels, bottom-up and contiguous (m/2 nodes, then m/4, ...).
+// Block b owns children [2·b·cnt0, 2·(b+1)·cnt0), cnt0 = min(LADDER_NODES,
+// m/2); at level j its cnt0 >> j nodes start at node b·(cnt0 >> j) of the
+// level. A level of more nodes than the block has warps runs one node a
+// thread (thread t: nodes t, t + LADDER_THREADS, ...); a smaller one runs
+// one node a warp (keccak_f_warp). Every thread reaches every barrier.
+// at most 128 registers: two blocks an SM hold a 2^18-leaf tree's first
+// launch (256 blocks) in one wave
+__global__ void __launch_bounds__(LADDER_THREADS, 2)
+merkle_ladder_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
+                     long long m, int levels) {
+    // ping-pong: level j writes sh[j & 1], level j + 1 reads it
+    __shared__ uint4 sh[2][LADDER_NODES][2];
+    const int t = threadIdx.x;
+    const int cnt0 = (int)min((long long)LADDER_NODES, m >> 1);
+    const long long b = blockIdx.x;
+    long long level_off = 0;  // nodes of dst before level j
+    long long level_nodes = m >> 1;
+    int cnt = cnt0;
+    for (int j = 0; j < levels; ++j) {
+        // the children of node i: 16 words, src or the previous level's sh
+        const uint4* kids = j == 0 ? src + b * cnt0 * 4 : &sh[(j - 1) & 1][0][0];
+        uint4* out = dst + (level_off + b * cnt) * 2;
+        if (cnt <= LADDER_WARPS) {
+            const int w = t >> 5, lane = t & 31;
+            if (w < cnt) {  // whole warps: the shuffles see all 32 lanes
+                uint64_t a = 0;
+                if (lane < 8) {  // state lane `lane`: words 2·lane, 2·lane + 1
+                    const uint2 v = ((const uint2*)(kids + w * 4))[lane];
+                    a = (uint64_t)v.x | ((uint64_t)v.y << 32);
+                }
+                a = keccak_f_warp(a, lane);
+                if (lane < 4) {
+                    const uint2 d = make_uint2((uint32_t)a, (uint32_t)(a >> 32));
+                    ((uint2*)(out + w * 2))[lane] = d;
+                    ((uint2*)&sh[j & 1][w][0])[lane] = d;
+                }
+            }
+        } else {
+            for (int i = t; i < cnt; i += LADDER_THREADS) {
+                uint4 c[4];
+#pragma unroll
+                for (int k = 0; k < 4; ++k) c[k] = kids[i * 4 + k];
+                uint4 d[2];
+                compress_node(c, d);
+                out[i * 2] = d[0];
+                out[i * 2 + 1] = d[1];
+                sh[j & 1][i][0] = d[0];
+                sh[j & 1][i][1] = d[1];
+            }
+        }
+        __syncthreads();
+        level_off += level_nodes;
+        level_nodes >>= 1;
+        cnt >>= 1;
+    }
+}
+
 unsigned blocks_for(long long h) { return (unsigned)((h + THREADS - 1) / THREADS); }
 
 }  // namespace
@@ -155,6 +311,20 @@ int keccak_compress(const void* left, const void* right, void* out, long long h,
                     void* stream) {
     compress_kernel<<<blocks_for(h), THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)left, (const uint32_t*)right, (uint32_t*)out, h);
+    return (int)cudaGetLastError();
+}
+
+// src: (m, 8) u32 digests, 16-byte aligned; dst: the next `levels` levels,
+// (m - (m >> levels), 8) u32. m is a power of two; a block covers at most
+// log2(LADDER_NODES) + 1 levels.
+int keccak_merkle_ladder(const void* src, void* dst, long long m, int levels,
+                         void* stream) {
+    const long long cnt0 = m / 2 < LADDER_NODES ? m / 2 : LADDER_NODES;
+    if (m < 2 || levels < 1 || levels > 31 || (cnt0 >> (levels - 1)) < 1)
+        return (int)cudaErrorInvalidValue;
+    merkle_ladder_kernel<<<(unsigned)(m / 2 / cnt0), LADDER_THREADS, 0,
+                           (cudaStream_t)stream>>>((const uint4*)src, (uint4*)dst,
+                                                   m, levels);
     return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,16 @@
 """The keccak Merkle kernels (csrc/keccak.cu): wrappers and plain versions.
 
 Port of `plonky3_tpu/hashes/keccak_pallas.py` (`keccak_sponge_rows_pallas`,
-`keccak_compress_pallas`). Both take and return int32 tensors holding u32
+`keccak_compress_pallas`). All take and return int32 tensors holding u32
 words. A CPU tensor takes the plain version (torch int64 lanes with masked
 right shifts); a CUDA tensor launches the kernel.
+
+- `keccak_sponge_rows`: the leaf hash, (h, w) rows -> (h, 8) digests.
+- `keccak_compress`: one tree level, (h, 8) + (h, 8) -> (h, 8).
+- `keccak_merkle_ladder`: every level of a tree above n digests, in
+  `len(ladder_plan(n))` launches of a kernel that builds up to
+  LADDER_LOG_NODES + 1 levels per launch (two for a 2^18-leaf tree). Its
+  plain version is `keccak_compress_plain` applied level by level.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from .keccak import RC64, keccak_f
 
 RATE = 17  # u64 lanes per absorb block
 OUT_WORDS = 8  # digest: 4 u64 lanes as 8 u32 words
+LADDER_LOG_NODES = 9  # log2 of LADDER_NODES in csrc/keccak.cu
 
 _M32 = 0xFFFFFFFF
 
@@ -69,6 +77,32 @@ def keccak_compress_plain(left, right):
     return keccak_sponge_rows_plain(torch.cat([left, right], dim=1))
 
 
+def keccak_merkle_ladder_plain(digests, top=1):
+    """(n, 8) int32 digests -> the levels above them up to `top` nodes,
+    bottom-up in one (n - top, 8) tensor, in plain PyTorch."""
+    levels, cur = [], digests
+    while cur.shape[0] > top:
+        pairs = cur.reshape(-1, 2, OUT_WORDS)
+        cur = keccak_compress_plain(pairs[:, 0], pairs[:, 1])
+        levels.append(cur)
+    return torch.cat(levels) if levels else digests[:0]
+
+
+def ladder_plan(n, top=1, log_nodes=LADDER_LOG_NODES):
+    """The ladder kernel's launches for n digests up to `top` nodes:
+    (src, dst, m, levels) each, in nodes. A launch reads m digests at row
+    `src` of the output (None: the input) and writes `levels` levels from
+    row `dst`; a block owning 2^log_nodes nodes of its first level covers
+    at most log_nodes + 1."""
+    steps, src, dst, m = [], None, 0, n
+    while m > top:
+        levels = min((m // top).bit_length() - 1, log_nodes + 1)
+        steps.append((src, dst, m, levels))
+        nxt = m >> levels
+        src, dst, m = dst + m - 2 * nxt, dst + m - nxt, nxt
+    return steps
+
+
 def _check_rows(t, what, width=None):
     if t.dim() != 2 or (width is not None and t.shape[1] != width):
         raise ValueError(f"{what}: bad shape {tuple(t.shape)}")
@@ -109,4 +143,33 @@ def keccak_compress(left, right):
         left.data_ptr(), right.data_ptr(), out.data_ptr(), h,
         kernels.stream_of(left)), "keccak_compress")
     kernels.LAUNCHES["keccak_compress"] += 1
+    return out
+
+
+def keccak_merkle_ladder(digests, top=1):
+    """Merkle ladder: (n, 8) int32 digests, n a power of two -> the levels
+    above them up to `top` nodes (a power of two, default the root),
+    bottom-up in one (n - top, 8) int32 tensor: n/2 parents first. Node i
+    of a level compresses nodes 2i and 2i+1 of the level below."""
+    _check_rows(digests, "keccak_merkle_ladder", OUT_WORDS)
+    n = digests.shape[0]
+    if n < 1 or n & (n - 1) or top < 1 or top & (top - 1) or top > n:
+        raise ValueError(f"keccak_merkle_ladder: {n} digests up to {top} "
+                         "nodes (both powers of two, top <= n)")
+    if digests.device.type == "cpu":
+        return keccak_merkle_ladder_plain(digests, top)
+    kernels.require_cuda_tensor(digests, "keccak_merkle_ladder", torch.int32)
+    if digests.data_ptr() % 16:
+        raise ValueError("keccak_merkle_ladder: digests must be 16-byte "
+                         "aligned")
+    out = torch.empty((n - top, OUT_WORDS), dtype=torch.int32,
+                      device=digests.device)
+    lib = kernels.lib("keccak")
+    stream = kernels.stream_of(digests)
+    for src, dst, m, levels in ladder_plan(n, top):
+        s_ptr = digests.data_ptr() if src is None else out[src].data_ptr()
+        kernels.check(lib.keccak_merkle_ladder(
+            s_ptr, out[dst].data_ptr(), m, levels, stream),
+            "keccak_merkle_ladder")
+        kernels.LAUNCHES["keccak_ladder"] += 1
     return out

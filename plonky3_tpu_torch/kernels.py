@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH = "arch=compute_90a,code=sm_90a"
 
 LAUNCHES = {"ntt_k1": 0, "ntt_k2": 0, "keccak_sponge": 0,
-            "keccak_compress": 0}
+            "keccak_compress": 0, "keccak_ladder": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +41,7 @@ _SIGNATURES = {
     "keccak": {
         "keccak_sponge_rows": [_P, _P, _L, _I, _P],
         "keccak_compress": [_P, _P, _P, _L, _P],
+        "keccak_merkle_ladder": [_P, _P, _L, _I, _P],
     },
 }
 

@@ -7,6 +7,13 @@ digest count. Matrices of a shorter height are injected when the ladder
 reaches their height (taller matrices first, same-height matrices
 concatenated row-wise in input order).
 
+The compressor builds the levels between two injection heights in one
+call (`ladder_device`; for keccak, the Merkle ladder kernel in two launches
+for a 2^18-leaf tree), so without injection the whole tree is one call and
+its layers are views into one buffer. The injection level itself is one
+`compress_device` call. A compressor without a ladder kernel of its own
+implements `ladder_device` with `levels_by_compress`, one call per level.
+
 Openings are pruned multiproofs (merkle-tree/src/pruning.rs): a sibling
 digest is shipped only when no queried leaf lies under it, in the
 normative wire order (level 0 first; within a level by ascending parent;
@@ -43,6 +50,16 @@ class MerkleProverData:
         return self.root_std
 
 
+def levels_by_compress(compressor, layer, top=1):
+    """[layer, then each level above it up to `top` nodes], one
+    `compress_device` call per level."""
+    levels = [layer]
+    while levels[-1].shape[0] > top:
+        pairs = levels[-1].reshape(levels[-1].shape[0] // 2, 2, -1)
+        levels.append(compressor.compress_device(pairs[:, 0], pairs[:, 1]))
+    return levels
+
+
 def _build_layers(mmcs, mats):
     """Leaf sponge and compression ladder with mixed-height injection."""
     heights = [m.shape[0] for m in mats]
@@ -52,16 +69,16 @@ def _build_layers(mmcs, mats):
         return [mats[i] for i in order if heights[i] == h]
 
     h = max(heights)
-    layers = [mmcs.sponge.hash_rows_device(take(h))]
-    while h > 1:
-        h //= 2
-        pairs = layers[-1].reshape(h, 2, -1)
-        layer = mmcs.compressor.compress_device(pairs[:, 0], pairs[:, 1])
-        inject = take(h)
+    layers, cur = [], mmcs.sponge.hash_rows_words(take(h))
+    # the ladder stops at each shorter height, then at the root
+    for top in sorted((set(heights) | {1}) - {h}, reverse=True) or [1]:
+        levels = mmcs.compressor.ladder_device(cur, top)
+        layers += levels[1:] if layers else levels
+        inject = take(top) if top < h else []
         if inject:
             tips = mmcs.sponge.hash_rows_device(inject)
-            layer = mmcs.compressor.compress_device(layer, tips)
-        layers.append(layer)
+            layers[-1] = mmcs.compressor.compress_device(layers[-1], tips)
+        cur = layers[-1]
     return layers
 
 

@@ -58,6 +58,41 @@ def test_keccak_kernels_match_plain(cuda, h, w):
     assert torch.equal(got, kc.keccak_compress_plain(left, right))
 
 
+@pytest.mark.parametrize("log_n", [1, 5, 11])
+def test_merkle_ladder_matches_plain(cuda, log_n):
+    from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.hashes import keccak_cuda as kc
+
+    d = _words(np.random.default_rng(log_n), (1 << log_n, 8), 1 << 32, cuda)
+    before = kernels.LAUNCHES["keccak_ladder"]
+    got = kc.keccak_merkle_ladder(d)
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["keccak_ladder"] - before
+            == len(kc.ladder_plan(1 << log_n)))
+    assert torch.equal(got, kc.keccak_merkle_ladder_plain(d))
+
+
+def test_mixed_height_commit_equals_cpu(cuda):
+    from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.hashes.keccak_sponge import (
+        KeccakCompressor,
+        KeccakFieldSponge,
+    )
+    from plonky3_tpu_torch.merkle.mmcs import MerkleTreeMmcs
+
+    rng = np.random.default_rng(40)
+    mats = [F.rand_np(rng, s).astype(np.int64)
+            for s in [(32, 3), (32, 4), (8, 7), (2, 1)]]
+    mmcs = MerkleTreeMmcs(KeccakFieldSponge(F), KeccakCompressor())
+    before = kernels.LAUNCHES["keccak_compress"]
+    got = mmcs.commit([torch.from_numpy(m).to(cuda) for m in mats])
+    assert kernels.LAUNCHES["keccak_compress"] - before == 2
+    want = mmcs.commit([torch.from_numpy(m) for m in mats])
+    assert got.commitment == want.commitment
+    assert all(torch.equal(g.cpu(), w)
+               for g, w in zip(got.layers, want.layers))
+
+
 def test_cuda_proof_equals_cpu_proof(cuda):
     import dataclasses
 
