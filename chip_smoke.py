@@ -21,12 +21,16 @@ Phases, each printed as one JSON line:
            busier integer pipe's operations on this card) and its share
            (bound / time; above 1.05 the count is wrong and the script
            fails); at 2^18 leaves also the per-level compress route that
-           the ladder replaced;
+           the ladder replaced. The transcript's keccak-256 kernels
+           likewise: the digest chain at the padding's edge lengths and
+           at the main path's longest call (10,536 words), the
+           proof-of-work grind at 1 to 16 bits;
   mixed    a commit of mixed-height matrices (injection levels through
            keccak_compress, the rest through the ladder) on CUDA equals
            the same commit on the CPU, with its launch counts;
-  small    prove() on CUDA equals prove() on the CPU (plain versions) for
-           Poseidon2VectorAir(KoalaBear, 16, vector_len=8) at 2^8 rows;
+  small    prove() and the device-transcript prover on CUDA equal both on
+           the CPU (plain versions) for Poseidon2VectorAir(KoalaBear, 16,
+           vector_len=8) at 2^8 rows;
   full     the benchmark workload: 2^20 Poseidon2 permutations, a
            2^17 x 1312 trace, keccak config, FriParameters
            .new_benchmark_high_arity(); two proves, the second timed, with
@@ -35,7 +39,15 @@ Phases, each printed as one JSON line:
            launch's shape ("per_proof": each kernel's launches and bound
            summed over one proof), and one under torch.profiler
            ("profile": device time by kernel, the port's own kernels
-           listed apart, the compressor's time, device idle share).
+           listed apart, the compressor's time, device idle share);
+  fast     the main path: the same workload through the device-transcript
+           prover (stark/fast_prover.py::_prove_device_fs, called directly
+           so that no fallback hides a failure), cold and warm; the proof
+           must equal the full phase's; its launches (one grind a proof),
+           device-to-host copies, warm time against prove() in turns,
+           peak memory, spans, per-proof bounds, the synchronizing calls
+           of one prove (as torch.cuda.set_sync_debug_mode counts them)
+           and its profile.
 Before the last line: one JSON object listing every kernel. The last line
 is {"ok": true, "device": {...}}. Any mismatch or error exits nonzero and
 prints no result. Imports nothing of JAX or of plonky3_tpu.
@@ -170,6 +182,22 @@ def ladder_bound(peak, m, nodes):
     return bound_ms(peak, 32 * (m + nodes), nodes * KECCAK_F_ALU)
 
 
+def chain_bound(peak, n, k):
+    """keccak-256 of n words, then k - 1 re-hashes of the digest: n//34 + 1
+    + k - 1 keccak-f, one after another (the bound counts no latency, so
+    a chain's share stays low)."""
+    return bound_ms(peak, 4 * n + 32 * k, (n // 34 + k) * KECCAK_F_ALU)
+
+
+def grind_bound(peak, m, w):
+    """The least work that finds witness w after m words: the blocks
+    before the witness's once, then w + 1 candidates of 1 block (2 when
+    the padding opens a block)."""
+    tail = 2 if (m + 1) % 34 == 0 else 1
+    return bound_ms(peak, 4 * m + 4,
+                    (m // 34 + tail * (w + 1)) * KECCAK_F_ALU)
+
+
 class LaunchRecorder:
     """Stands in for a loaded kernel library (`kernels._LIBS[name]`) and
     records the arguments of every C entry called through it."""
@@ -187,10 +215,12 @@ class LaunchRecorder:
         return call
 
 
-def launch_bounds(peak, calls):
+def launch_bounds(peak, calls, witnesses=()):
     """{record name: {launches, bound_ms}} summed over recorded launches
-    (the C entries' arguments: sizes, widths, levels)."""
+    (the C entries' arguments: sizes, widths, levels; `witnesses`, the
+    grinds' results in launch order)."""
     out = collections.defaultdict(lambda: {"launches": 0, "bound_ms": 0.0})
+    found = iter(witnesses)
     for fn, a in calls:
         if fn == "ntt_k1":
             name, b = "ntt_k1", ntt_bound(peak, "k1", a[4], a[5], a[6],
@@ -202,6 +232,10 @@ def launch_bounds(peak, calls):
             name, b = "keccak_sponge", sponge_bound(peak, a[2], a[3])
         elif fn == "keccak_compress":
             name, b = "keccak_compress", compress_bound(peak, a[3])
+        elif fn == "keccak256_chain":
+            name, b = "keccak256_chain", chain_bound(peak, a[2], a[3])
+        elif fn == "keccak_grind":
+            name, b = "keccak_grind", grind_bound(peak, a[1], next(found))
         else:
             m, levels = a[2], a[3]
             name, b = "keccak_ladder", ladder_bound(peak, m,
@@ -444,6 +478,66 @@ def phase_kernels(torch, np, peak):
                 bound_by=b[1], library_ms=None, share=rec["share"],
                 per_level_route_device_ms=old_dev, shape=[n, 8])
         emit({"phase": "kernels", "kernel": "keccak_ladder", **rec})
+
+    # The transcript's digest chain: the padding's edge lengths (33: both
+    # pads in one word; 34: a fresh block), and the main path's longest
+    # call, the opened values absorbed before alpha2 (10,536 words, k = 2).
+    # The plain chain of k digests is the first k rows of the plain chain
+    # of 13, so each length runs its plain version once.
+    serializing = "plonky3_tpu/challenger/device_serializing.py"
+    for n in (0, 1, 33, 34, 35, 10536):
+        words = _rand_words(torch, rng, (n,), 1 << 32)
+        want = kc.keccak256_chain_plain(words, 13)
+        for k in (1, 2, 13):
+            got = kc.keccak256_chain(words, k)
+            err = compare(f"chain {n} {k}", got, want[:k])
+            rec = {"n": n, "k": k, "max_abs_err": err}
+            if (n, k) == (10536, 2):
+                chain = lambda: kc.keccak256_chain(words, 2)  # noqa: E731
+                ms = profiled_ms(torch, chain, 10, "keccak256_chain_kernel")
+                wall = cuda_ms(torch, chain, 10)
+                plain = cuda_ms(torch,
+                                lambda: kc.keccak256_chain_plain(words, 2), 1)
+                b = chain_bound(peak, n, k)
+                rec.update(ms=ms, wall_ms=wall, plain_ms=plain,
+                           bound_ms=b[0], bound_by=b[1],
+                           share=share("chain", b[0], ms))
+                records["keccak256_chain"] = dict(
+                    name="keccak256_chain", route="cuda", source=src,
+                    replaces=f"{serializing}:57", max_abs_err=err, ms=ms,
+                    plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                    library_ms=None, share=rec["share"], shape=[n, k])
+            emit({"phase": "kernels", "kernel": "keccak256_chain", **rec})
+
+    # The proof-of-work grind: 18 words (the main path's message), 33 (the
+    # witness ends a block: the padding opens one), 40 (a block before the
+    # witness's); at 1 bit many candidates of a sweep pass and the
+    # smallest must win.
+    for m in (18, 33, 40):
+        words = _rand_words(torch, rng, (m,), 1 << 32)
+        for bits in (1, 4, 8, 12, 16):
+            got = kc.keccak_grind(words, bits, F.P)
+            want = kc.keccak_grind_plain(words, bits, F.P)
+            err = compare(f"grind {m} {bits}", got, want)
+            w = int(got[0])
+            rec = {"m": m, "pow_bits": bits, "witness": w, "max_abs_err": err}
+            if (m, bits) == (18, 16):
+                grind = lambda: kc.keccak_grind(words, 16, F.P)  # noqa: E731
+                ms = profiled_ms(torch, grind, 10, "keccak_grind_kernel")
+                wall = cuda_ms(torch, grind, 10)
+                plain = cuda_ms(torch, lambda: kc.keccak_grind_plain(
+                    words, 16, F.P), 2)
+                b = grind_bound(peak, m, w)
+                rec.update(ms=ms, wall_ms=wall, plain_ms=plain,
+                           bound_ms=b[0], bound_by=b[1],
+                           share=share("grind", b[0], ms))
+                records["keccak_grind"] = dict(
+                    name="keccak_grind", route="cuda", source=src,
+                    replaces=f"{serializing}:141", max_abs_err=err, ms=ms,
+                    plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                    library_ms=None, share=rec["share"], shape=[m, 16],
+                    witness=w)
+            emit({"phase": "kernels", "kernel": "keccak_grind", **rec})
     return records
 
 
@@ -506,26 +600,42 @@ def _workload(np, log_n, params, device):
 
 
 def phase_small(torch, np):
-    """prove() on the card equals prove() on the CPU at full width."""
+    """prove() and the device-transcript prover on the card equal both on
+    the CPU at full width; so does prove_fast without a query proof of
+    work (grind(0) on the device path: on the card prove_fast raises
+    rather than fall back to prove())."""
+    import dataclasses
+
     from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark.fast_prover import _prove_device_fs
+    from plonky3_tpu_torch.stark.fast_prover import prove_fast
     from plonky3_tpu_torch.stark.prover import prove
 
     params = FriParameters(log_blowup=1, log_final_poly_len=0,
                            max_log_arity=3, num_queries=10,
                            commit_proof_of_work_bits=0,
                            query_proof_of_work_bits=8)
-    proofs, secs = {}, {}
+    no_pow = dataclasses.replace(params, query_proof_of_work_bits=0)
+    proofs, secs = collections.defaultdict(dict), {}
     for dev in ("cuda", "cpu"):
-        config, air, trace = _workload(np, 8, params, dev)
-        t0 = time.perf_counter()
-        proofs[dev] = as_plain(prove(config, air, trace, []))
-        torch.cuda.synchronize()
-        secs[dev] = time.perf_counter() - t0
-    if proofs["cuda"] != proofs["cpu"]:
-        raise AssertionError("the CUDA proof differs from the CPU proof")
+        for case, p, fns in (
+                ("pow8", params, (("prove", prove),
+                                  ("fast", _prove_device_fs))),
+                ("pow0", no_pow, (("prove", prove),
+                                  ("prove_fast", prove_fast)))):
+            config, air, trace = _workload(np, 8, p, dev)
+            for name, fn in fns:
+                t0 = time.perf_counter()
+                proofs[case][name, dev] = as_plain(fn(config, air, trace, []))
+                torch.cuda.synchronize()
+                secs[f"{case}_{name}_{dev}_s"] = time.perf_counter() - t0
+    for case, got in proofs.items():
+        if len(set(got.values())) != 1:
+            raise AssertionError(f"the small {case} proofs differ: "
+                                 f"{sorted(got, key=got.get)}")
     emit({"phase": "small", "log_n": 8, "width": air.width,
-          "cuda_equals_cpu": True, "cuda_s": secs["cuda"],
-          "cpu_s": secs["cpu"]})
+          "cuda_equals_cpu": True, "fast_equals_prove": True,
+          "no_query_pow_equals_prove": True, **secs})
 
 
 # the kernels the main path must launch
@@ -562,13 +672,7 @@ def phase_full(torch, np, kernels, peak):
         raise AssertionError(f"kernels not launched by prove: {missing}")
     if as_plain(first) != as_plain(proof):
         raise AssertionError("two proves of the same trace differ")
-    ov = proof.opened_values
-    if (proof.degree_bits != log_n or len(ov.trace_local) != air.width
-            or len(ov.trace_next) != air.width
-            or len(ov.quotient_chunks) != 2
-            or len(proof.opening_proof.commit_phase_steps[0].sibling_values)
-            != params.num_queries):
-        raise AssertionError("the full-size proof has the wrong shape")
+    check_shape(proof, air, params, log_n)
     n_perms = 8 << log_n
     emit({"phase": "full", "log_n": log_n, "rows": 1 << log_n,
           "width": air.width, "perms": n_perms, "trace_gen_s": gen_s,
@@ -587,14 +691,131 @@ def phase_full(torch, np, kernels, peak):
     emit({"phase": "spans", "seconds": spans})
     per_proof = launch_bounds(peak, calls)
     emit({"phase": "per_proof", "kernels": per_proof})
-    device_ms = profile_prove(torch, prove, config, air, trace, warm_s)
-    return launches, per_proof, device_ms
+    device_ms, _ = profile_prove(torch, prove, config, air, trace, warm_s)
+    return dict(launches=launches, per_proof=per_proof, device_ms=device_ms,
+                proof=proof, workload=(config, air, trace))
+
+
+def check_shape(proof, air, params, log_n):
+    ov = proof.opened_values
+    if (proof.degree_bits != log_n or len(ov.trace_local) != air.width
+            or len(ov.trace_next) != air.width
+            or len(ov.quotient_chunks) != 2
+            or len(proof.opening_proof.commit_phase_steps[0].sibling_values)
+            != params.num_queries):
+        raise AssertionError("the full-size proof has the wrong shape")
+
+
+# the transcript kernels the device-transcript prover adds to MAIN_PATH
+FAST_PATH = MAIN_PATH + ("keccak256_chain", "keccak_grind")
+
+
+def phase_fast(torch, np, kernels, peak, full):
+    """The main path: the full phase's workload through the device-
+    transcript prover (`_prove_device_fs`, what prove_fast runs; on the
+    card prove_fast raises rather than fall back). Returns its launches,
+    per-proof bounds and profiled device time by kernel."""
+    import warnings
+
+    from plonky3_tpu_torch.stark import fast_prover as fp
+    from plonky3_tpu_torch.stark.prover import prove
+
+    config, air, trace = full["workload"]
+    params = config.pcs.fri
+    log_n = trace.shape[0].bit_length() - 1
+
+    def timed(fn, **kw):
+        t0 = time.perf_counter()
+        proof = fn(config, air, trace, [], **kw)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    first, cold_s = timed(fp._prove_device_fs)
+    kernels.reset_launches()
+    pulls = fp.PULLS["count"]
+    proof, warm_s = timed(fp._prove_device_fs)
+    launches = dict(kernels.LAUNCHES)
+    pulls = fp.PULLS["count"] - pulls
+    peak_mem = torch.cuda.max_memory_allocated()
+    missing = [k for k in FAST_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the fast prover: "
+                             f"{missing}")
+    grinds = 1 + (params.commit_proof_of_work_bits > 0) * len(
+        proof.opening_proof.commit_phase_commits)
+    if launches["keccak_grind"] != grinds:
+        raise AssertionError(f"{launches['keccak_grind']} grinds, "
+                             f"expected {grinds}")
+    if pulls > 2:
+        raise AssertionError(f"{pulls} device-to-host copies in one proof")
+    if as_plain(proof) != as_plain(full["proof"]):
+        raise AssertionError("the fast proof differs from prove()'s")
+    if as_plain(first) != as_plain(proof):
+        raise AssertionError("two fast proves of the same trace differ")
+    check_shape(proof, air, params, log_n)
+    # warm times of both provers in turns, on the same card
+    turns = {"prove": [], "fast": []}
+    for name in ("prove", "fast", "fast", "prove", "prove", "fast"):
+        fn = prove if name == "prove" else fp._prove_device_fs
+        turns[name].append(timed(fn)[1])
+    n_perms = 8 << log_n
+    fast_s = statistics.median(turns["fast"])
+    emit({"phase": "fast", "log_n": log_n, "perms": n_perms,
+          "cold_prove_s": cold_s, "warm_prove_s": warm_s,
+          "perms_per_s": n_perms / warm_s, "peak_mem_bytes": peak_mem,
+          "pulls": pulls, "launches": launches,
+          "warm_fast_s_turns": turns["fast"],
+          "warm_prove_s_turns": turns["prove"],
+          "fast_median_s": fast_s,
+          "prove_median_s": statistics.median(turns["prove"]),
+          "equals_prove": True})
+    spans, calls = {}, []
+    real = dict(kernels._LIBS)
+    kernels._LIBS.update({k: LaunchRecorder(v, calls)
+                          for k, v in real.items()})
+    try:
+        traced = fp._prove_device_fs(config, air, trace, [], spans=spans)
+    finally:
+        kernels._LIBS.update(real)
+    emit({"phase": "fast_spans", "seconds": spans})
+    fri = traced.opening_proof
+    witnesses = ([w for w in fri.commit_pow_witnesses]
+                 if params.commit_proof_of_work_bits else [])
+    per_proof = launch_bounds(peak, calls,
+                              witnesses + [fri.query_pow_witness])
+    emit({"phase": "fast_per_proof", "kernels": per_proof})
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fp._prove_device_fs(config, air, trace, [])
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = collections.Counter(
+        str(w.message).splitlines()[0][:80] for w in caught
+        if "synchroniz" in str(w.message))
+    emit({"phase": "fast_syncs", "synchronizing_calls": sum(syncs.values()),
+          "by_message": dict(syncs)})
+    device_ms, launch_us = profile_prove(torch, fp._prove_device_fs, config,
+                                         air, trace, fast_s)
+    # the chain's profiled time call by call, beside each call's size
+    chains = [a for fn, a in calls if fn == "keccak256_chain"]
+    emit({"phase": "fast_chain_calls",
+          "launches_profiled": len(launch_us["keccak256_chain"]),
+          "calls": [{"n": a[2], "k": a[3], "keccak_f": a[2] // 34 + a[3],
+                     "us": us,
+                     "bound_us": chain_bound(peak, a[2], a[3])[0] * 1e3}
+                    for a, us in zip(chains, launch_us["keccak256_chain"])]})
+    return dict(launches=launches, per_proof=per_proof, device_ms=device_ms)
 
 
 def profile_prove(torch, prove, config, air, trace, warm_s):
     """One prove under torch.profiler: device time by kernel, and the
     device's busy share of the unprofiled warm prove's wall time.
-    Returns the port's kernels' device ms by record name."""
+    Returns the port's kernels' device ms by record name, and the device
+    µs of each launch of the transcript kernels in launch order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -607,13 +828,22 @@ def profile_prove(torch, prove, config, air, trace, warm_s):
                    if ev.device_type == DeviceType.CUDA), reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     ours = ("ntt_kernel", "sponge_rows_kernel", "compress_kernel",
-            "merkle_ladder_kernel")
+            "merkle_ladder_kernel", "keccak256_chain_kernel",
+            "keccak_grind_kernel")
     device_ms, calls = collections.Counter(), collections.Counter()
     for us, k, c in rows:
         for name, tags in PROFILE_NAMES.items():
             if all(t in k for t in tags):
                 device_ms[name] += us / 1e3
                 calls[name] += c
+    launch_us = {name: [] for name in ("keccak256_chain", "keccak_grind")}
+    for ev in sorted((ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA),
+                     key=lambda ev: ev.time_range.start):
+        for name in launch_us:
+            if all(t in ev.name for t in PROFILE_NAMES[name]):
+                launch_us[name].append(ev.time_range.end
+                                       - ev.time_range.start)
     compressor = ("keccak_ladder", "keccak_compress")
     emit({"phase": "profile", "device_busy_s": busy_s,
           "warm_prove_s": warm_s, "device_idle_share": 1 - busy_s / warm_s,
@@ -625,7 +855,7 @@ def profile_prove(torch, prove, config, air, trace, warm_s):
           "compressor_ms": sum(device_ms[k] for k in compressor),
           "compressor_launches": sum(calls[k] for k in compressor),
           "device_ms": dict(device_ms)})
-    return dict(device_ms)
+    return dict(device_ms), launch_us
 
 
 # profiler kernel names of each record: every tag must appear
@@ -633,7 +863,9 @@ PROFILE_NAMES = {"ntt_k1": ("ntt_kernel<", "true>"),
                  "ntt_k2": ("ntt_kernel<", "false>"),
                  "keccak_sponge": ("sponge_rows_kernel",),
                  "keccak_compress": ("compress_kernel",),
-                 "keccak_ladder": ("merkle_ladder_kernel",)}
+                 "keccak_ladder": ("merkle_ladder_kernel",),
+                 "keccak256_chain": ("keccak256_chain_kernel",),
+                 "keccak_grind": ("keccak_grind_kernel",)}
 
 
 def main(argv=None) -> int:
@@ -651,14 +883,20 @@ def main(argv=None) -> int:
     records = phase_kernels(torch, np, peak)
     mixed = phase_mixed(torch, np, kernels)
     phase_small(torch, np)
-    launches, per_proof, device_ms = phase_full(torch, np, kernels, peak)
+    full = phase_full(torch, np, kernels, peak)
+    fast = phase_fast(torch, np, kernels, peak, full)
+    # launches, proof_ms and proof_bound_ms: the main path (the fast
+    # prover); *_prove: the host-transcript prove()
     for name, rec in records.items():
-        rec["launches"] = launches[name]
+        rec["launches"] = fast["launches"][name]
+        rec["launches_prove"] = full["launches"][name]
         rec["launches_mixed_commit"] = mixed[name]
-        if name in per_proof:
-            rec["proof_bound_ms"] = per_proof[name]["bound_ms"]
-        if name in device_ms:
-            rec["proof_ms"] = device_ms[name]
+        for key, got in (("", fast), ("_prove", full)):
+            if name in got["per_proof"]:
+                rec[f"proof_bound_ms{key}"] = got["per_proof"][name][
+                    "bound_ms"]
+            if name in got["device_ms"]:
+                rec[f"proof_ms{key}"] = got["device_ms"][name]
     emit({"kernels": [records[k] for k in sorted(records)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 // Keccak-f[1600] Merkle leaf sponge, 2-to-1 compressor and Merkle ladder,
-// for Hopper (sm_90a).
+// and the transcript's keccak-256 chain and proof-of-work grind, for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel of plonky3_tpu/hashes/keccak_pallas.py:
 // `_sponge_kernel` (with `_keccakf`, `_round`, `_rotl64`), launched by
@@ -21,7 +22,7 @@
 // sponge's loads are not coalesced across a warp; staging row tiles
 // through shared memory is later work.
 //
-// Three kernels:
+// Three Merkle kernels (the transcript's two are described further down):
 // - `sponge_rows_kernel`: the leaf hash, one thread per row.
 // - `compress_kernel`: one tree level, compress(left[i], right[i]); kept
 //   for the level where a shorter matrix is injected.
@@ -293,6 +294,135 @@ merkle_ladder_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
     }
 }
 
+// ---- The Fiat-Shamir transcript's keccak-256 (SerializingChallenger32) ----
+//
+// Not TPU kernels: their JAX counterparts are jnp code in
+// plonky3_tpu/challenger/device_serializing.py (`_keccak256_words` +
+// `_flush_chain`, and `_grind_search`). Keccak-256 absorbs a u32 word stream
+// by xor in blocks of RATE_WORDS words (17 lanes, lane j = words 2j, 2j + 1);
+// the padding is 0x01 in the word after the message and 0x80000000 xored
+// into the last word of the last block (both in one word when the message
+// ends one word short of a block, a fresh block when it ends on one).
+//
+// - `keccak256_chain_kernel`: d1 = keccak256(words), d_{i+1} = keccak256(d_i).
+//   A chain is serial: one warp, one state lane a thread (`keccak_f_warp`),
+//   the next block's 17 lanes loaded while the current block permutes. The
+//   longest call of a proof absorbs the opened values, about 310 blocks.
+// - `keccak_grind_kernel`: the proof-of-work search, see below.
+
+constexpr int RATE_WORDS = 34;
+constexpr int GRIND_THREADS = 128;
+
+// Padding of word i of a message of n words in nb blocks.
+__device__ __forceinline__ uint32_t pad_word(long long i, long long n, long long nb) {
+    uint32_t v = i == n ? 1u : 0u;
+    if (i == nb * RATE_WORDS - 1) v ^= 0x80000000u;
+    return v;
+}
+
+// Rate lane `lane` (< RATE) of block b of the padded message: words i, i + 1
+// with i = b·RATE_WORDS + 2·lane; message word `wit` (if >= 0) is `wval`.
+__device__ __forceinline__ uint64_t rate_lane(const uint32_t* words, long long n,
+                                              long long nb, long long b, int lane,
+                                              long long wit, uint32_t wval) {
+    const long long i = b * RATE_WORDS + 2 * lane;
+    uint32_t lo = i < n ? (i == wit ? wval : words[i]) : 0u;
+    uint32_t hi = i + 1 < n ? (i + 1 == wit ? wval : words[i + 1]) : 0u;
+    lo ^= pad_word(i, n, nb);
+    hi ^= pad_word(i + 1, n, nb);
+    return (uint64_t)lo | ((uint64_t)hi << 32);
+}
+
+__global__ void __launch_bounds__(32)
+keccak256_chain_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ out,
+                       long long n, int k) {
+    const int lane = threadIdx.x;
+    const long long nb = n / RATE_WORDS + 1;
+    uint64_t a = 0;
+    uint64_t next = lane < RATE ? rate_lane(words, n, nb, 0, lane, -1, 0) : 0;
+    for (long long b = 0; b < nb; ++b) {
+        a ^= next;
+        if (lane < RATE && b + 1 < nb) next = rate_lane(words, n, nb, b + 1, lane, -1, 0);
+        a = keccak_f_warp(a, lane);
+    }
+    for (int j = 0; j < k; ++j) {
+        if (lane < 4) {
+            out[j * 8 + 2 * lane] = (uint32_t)a;
+            out[j * 8 + 2 * lane + 1] = (uint32_t)(a >> 32);
+        }
+        if (j + 1 < k) {
+            // keccak256 of the 8-word digest, one block: the digest in lanes
+            // 0..3 where it already is, 0x01 in word 8 (lane 4), 0x80000000
+            // in word 33 (lane 16)
+            a = lane < 4 ? a : 0;
+            if (lane == 4) a = 1;
+            if (lane == 16) a = 0x8000000000000000ULL;
+            a = keccak_f_warp(a, lane);
+        }
+    }
+}
+
+// The smallest witness w in [0, p) for which keccak256(words ++ [monty(w)]),
+// monty(w) = w·2^32 mod p, pops a first u32 (the byte swap of digest word 7)
+// whose low pow_bits bits are zero. *best holds 0xFFFFFFFF on entry and the
+// witness on exit (still 0xFFFFFFFF if none exists).
+//
+// Each block's first warp absorbs the blocks before the witness's once and
+// stages the tail block(s) without the witness in shared memory; a thread
+// then permutes 1 or 2 blocks per candidate. Thread s of the S launched
+// takes candidates s, s + S, s + 2S, ... in order and stops at its first
+// pass (atomicMin) or at its first candidate above *best. Why the smallest
+// passing witness wins whatever the order of the blocks: *best only falls,
+// and is always a passing candidate or 0xFFFFFFFF; a thread skips a
+// candidate only when it exceeds *best at that moment, so it exceeds the
+// final *best; so every candidate below the final *best was tried and
+// failed. The wrapper sizes S to about four times the expected search, so
+// most threads try one candidate.
+__global__ void __launch_bounds__(GRIND_THREADS)
+keccak_grind_kernel(const uint32_t* __restrict__ words, long long m, uint32_t mask,
+                    uint32_t p, uint32_t r_mod_p, uint32_t* __restrict__ best) {
+    __shared__ uint64_t pre[25];
+    __shared__ uint64_t tail[2][RATE];
+    const long long n = m + 1;  // words ++ [witness]
+    const long long nb = n / RATE_WORDS + 1, wb = m / RATE_WORDS;
+    const int ntail = (int)(nb - wb);  // 2 when the 0x01 pad opens a block
+    const int t = threadIdx.x;
+    if (t < 32) {
+        uint64_t a = 0;
+        for (long long b = 0; b < wb; ++b) {
+            if (t < RATE) a ^= rate_lane(words, n, nb, b, t, m, 0);
+            a = keccak_f_warp(a, t);
+        }
+        if (t < 25) pre[t] = a;
+        if (t < RATE)
+            for (int j = 0; j < ntail; ++j) tail[j][t] = rate_lane(words, n, nb, wb + j, t, m, 0);
+    }
+    __syncthreads();
+    const int wlane = (int)(m % RATE_WORDS) >> 1;  // the witness word's lane
+    const int wshift = (int)(m & 1) * 32;          // and half
+    const uint32_t stride = gridDim.x * GRIND_THREADS;
+    const volatile uint32_t* seen = best;
+    for (uint32_t c = blockIdx.x * GRIND_THREADS + t; c < p; c += stride) {
+        if (c > *seen) break;
+        const uint64_t wm = (uint64_t)(uint32_t)(((uint64_t)c * r_mod_p) % p) << wshift;
+        uint64_t st[25];
+#pragma unroll
+        for (int i = 0; i < 25; ++i) st[i] = pre[i];
+#pragma unroll 1
+        for (int j = 0; j < ntail; ++j) {
+#pragma unroll
+            for (int i = 0; i < RATE; ++i)
+                st[i] ^= tail[j][i] ^ (j == 0 && i == wlane ? wm : 0);
+            keccak_f(st);
+        }
+        const uint32_t v = __byte_perm((uint32_t)(st[3] >> 32), 0, 0x0123);
+        if ((v & mask) == 0) {
+            atomicMin(best, c);
+            break;
+        }
+    }
+}
+
 unsigned blocks_for(long long h) { return (unsigned)((h + THREADS - 1) / THREADS); }
 
 }  // namespace
@@ -325,6 +455,28 @@ int keccak_merkle_ladder(const void* src, void* dst, long long m, int levels,
     merkle_ladder_kernel<<<(unsigned)(m / 2 / cnt0), LADDER_THREADS, 0,
                            (cudaStream_t)stream>>>((const uint4*)src, (uint4*)dst,
                                                    m, levels);
+    return (int)cudaGetLastError();
+}
+
+// words: n >= 0 u32 words; out: (k, 8) u32, the chain of k >= 1 digests.
+int keccak256_chain(const void* words, void* out, long long n, int k, void* stream) {
+    if (n < 0 || k < 1) return (int)cudaErrorInvalidValue;
+    keccak256_chain_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((const uint32_t*)words,
+                                                             (uint32_t*)out, n, k);
+    return (int)cudaGetLastError();
+}
+
+// words: m >= 0 u32 words; best: one u32 holding 0xFFFFFFFF, gets the
+// witness. About `threads` threads search, 1 <= pow_bits <= 31, p < 2^31.
+int keccak_grind(const void* words, long long m, int pow_bits, unsigned p, int threads,
+                 void* best, void* stream) {
+    if (m < 0 || pow_bits < 1 || pow_bits > 31 || threads < 1 || p >= (1u << 31))
+        return (int)cudaErrorInvalidValue;
+    const uint32_t mask = (uint32_t)((1ULL << pow_bits) - 1);
+    const uint32_t r_mod_p = (uint32_t)((1ULL << 32) % p);
+    keccak_grind_kernel<<<(unsigned)((threads + GRIND_THREADS - 1) / GRIND_THREADS),
+                          GRIND_THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)words, m, mask, p, r_mod_p, (uint32_t*)best);
     return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,8 @@ int64, so `mul` is the exact formula a·b·R^-1 mod P. It returns the same
 canonical value as the reference's REDC.
 
 Host scalar math (`*_h`) uses Python ints in standard form; the `*_np`
-helpers convert numpy arrays between standard and Montgomery form.
+helpers convert numpy arrays, the `*_tensor` ones int64 tensors, between
+standard and Montgomery form.
 """
 
 from __future__ import annotations
@@ -77,6 +78,15 @@ class Monty31:
     def from_monty_np(self, x: np.ndarray) -> np.ndarray:
         return ((np.asarray(x).astype(np.uint64) * np.uint64(self.RINV))
                 % np.uint64(self.P)).astype(_U32)
+
+    # ---- tensor conversions (int64, canonical) -------------------------
+    def to_monty_tensor(self, x):
+        """Standard-form int64 tensor in [0, 2^31) -> Montgomery form."""
+        return (x << 32) % self.P
+
+    def from_monty_tensor(self, x):
+        """Montgomery-form int64 tensor in [0, P) -> standard form."""
+        return x * self.RINV % self.P
 
     def shoup_np(self, w_std: np.ndarray) -> np.ndarray:
         """Shoup precomputation floor(w·2^32/P) for standard-form w."""

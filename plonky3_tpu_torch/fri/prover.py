@@ -30,13 +30,19 @@ def _halve_inv_powers(F, log_h: int, device):
 
 def fold_step(E, folded, beta_host):
     """One arity-2 fold of a bit-reversed (2h, D) codeword -> (h, D)."""
+    return fold_step_device(E, folded, E.const(beta_host, folded.device))
+
+
+def fold_step_device(E, folded, beta_m):
+    """`fold_step` with beta as a (D,) Montgomery tensor on the device (the
+    device transcript's sample): the same bits as the host beta."""
     F = E.base
     h = folded.shape[0] // 2
     m = folded.reshape(h, 2, E.D)
     lo, hi = m[:, 0], m[:, 1]
     hip = _halve_inv_powers(F, log2_strict(h), folded.device)
     even = F.halve(F.add(lo, hi))
-    odd = E.mul(F.sub(lo, hi), E.const(beta_host, folded.device))
+    odd = E.mul(F.sub(lo, hi), beta_m)
     return F.add(even, E.base_mul(hip, odd))
 
 

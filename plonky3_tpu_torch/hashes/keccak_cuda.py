@@ -11,6 +11,14 @@ right shifts); a CUDA tensor launches the kernel.
   `len(ladder_plan(n))` launches of a kernel that builds up to
   LADDER_LOG_NODES + 1 levels per launch (two for a 2^18-leaf tree). Its
   plain version is `keccak_compress_plain` applied level by level.
+
+The transcript's keccak-256 (`challenger/device_serializing.py`; the JAX
+counterparts are jnp code, not TPU kernels):
+
+- `keccak256_chain`: (n,) words -> the (k, 8) digests d1 = keccak256(words),
+  d_{i+1} = keccak256(d_i), in one launch.
+- `keccak_grind`: the smallest proof-of-work witness, as a (1,) tensor on
+  the device, in one launch.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from .. import kernels
 from .keccak import RC64, keccak_f
 
 RATE = 17  # u64 lanes per absorb block
+RATE_WORDS = 34  # keccak-256 rate, 136 bytes, as u32 words
 OUT_WORDS = 8  # digest: 4 u64 lanes as 8 u32 words
 LADDER_LOG_NODES = 9  # log2 of LADDER_NODES in csrc/keccak.cu
 
@@ -86,6 +95,68 @@ def keccak_merkle_ladder_plain(digests, top=1):
         cur = keccak_compress_plain(pairs[:, 0], pairs[:, 1])
         levels.append(cur)
     return torch.cat(levels) if levels else digests[:0]
+
+
+def _keccak256_rows(msgs):
+    """keccak-256 of each row of an (h, n) int64 tensor of u32 words ->
+    (h, 8) int32 digest words: xor absorb in blocks of RATE_WORDS words,
+    0x01 after the message, 0x80000000 into the last word."""
+    h, n = msgs.shape
+    nb = n // RATE_WORDS + 1
+    buf = torch.zeros((h, nb * RATE_WORDS), dtype=torch.int64,
+                      device=msgs.device)
+    buf[:, :n] = msgs
+    buf[:, n] ^= 1
+    buf[:, -1] ^= 0x80000000
+    st = [torch.zeros(h, dtype=torch.int64, device=msgs.device)] * 25
+    for b in range(nb):
+        lanes = _lanes(buf[:, b * RATE_WORDS:(b + 1) * RATE_WORDS])
+        st = [s ^ v for s, v in zip(st, lanes)] + st[RATE:]
+        st = keccak_f(st, _rotl_t, _RC_SIGNED)
+    return _digest(st)
+
+
+def keccak256_chain_plain(words, k):
+    """(n,) int32 words -> (k, 8) int32 digests d1 = keccak256(words),
+    d_{i+1} = keccak256(d_i), in plain PyTorch."""
+    d = _keccak256_rows(words.to(torch.int64).reshape(1, -1) & _M32)
+    out = [d]
+    for _ in range(k - 1):
+        d = _keccak256_rows(d.to(torch.int64) & _M32)
+        out.append(d)
+    return torch.cat(out)
+
+
+def bswap32(x):
+    """Byte swap of u32 values held in int64."""
+    return (((x & 0xFF) << 24) | ((x & 0xFF00) << 8) | ((x >> 8) & 0xFF00)
+            | ((x >> 24) & 0xFF))
+
+
+def grind_batch(pow_bits):
+    """Candidates searched at once: about four times the expected 2^pow_bits
+    tries, at most 2^17 (the kernel's thread count, the plain version's
+    window). The witness found does not depend on it."""
+    return 1 << min(17, pow_bits + 2)
+
+
+def keccak_grind_plain(words, pow_bits, p):
+    """The smallest w in [0, p) whose keccak256(words ++ [w·2^32 mod p])
+    has a first popped u32 (byte swap of digest word 7) with pow_bits low
+    zero bits, as a (1,) int32 tensor (-1 if none exists), in plain
+    PyTorch (windows of `grind_batch` candidates)."""
+    w = words.to(torch.int64).reshape(1, -1) & _M32
+    mask, batch = (1 << pow_bits) - 1, grind_batch(pow_bits)
+    for start in range(0, p, batch):
+        cand = torch.arange(start, min(start + batch, p), dtype=torch.int64,
+                            device=words.device)
+        msgs = torch.cat([w.expand(cand.shape[0], -1),
+                          ((cand << 32) % p)[:, None]], dim=1)
+        d = _keccak256_rows(msgs).to(torch.int64) & _M32
+        hit = (bswap32(d[:, 7]) & mask) == 0
+        if bool(hit.any()):
+            return cand[hit.to(torch.int8).argmax()].reshape(1).to(torch.int32)
+    return torch.full((1,), -1, dtype=torch.int32, device=words.device)
 
 
 def ladder_plan(n, top=1, log_nodes=LADDER_LOG_NODES):
@@ -173,3 +244,38 @@ def keccak_merkle_ladder(digests, top=1):
             "keccak_merkle_ladder")
         kernels.LAUNCHES["keccak_ladder"] += 1
     return out
+
+
+def keccak256_chain(words, k):
+    """Digest chain: (n,) int32 words, n >= 0 -> (k, 8) int32 digests,
+    d1 = keccak256(words), d_{i+1} = keccak256(d_i)."""
+    if words.dim() != 1 or k < 1:
+        raise ValueError(f"keccak256_chain: {tuple(words.shape)} words, "
+                         f"k = {k}")
+    if words.device.type == "cpu":
+        return keccak256_chain_plain(words, k)
+    kernels.require_cuda_tensor(words, "keccak256_chain", torch.int32)
+    out = torch.empty((k, OUT_WORDS), dtype=torch.int32, device=words.device)
+    kernels.check(kernels.lib("keccak").keccak256_chain(
+        words.data_ptr(), out.data_ptr(), words.shape[0], k,
+        kernels.stream_of(words)), "keccak256_chain")
+    kernels.LAUNCHES["keccak256_chain"] += 1
+    return out
+
+
+def keccak_grind(words, pow_bits, p):
+    """Proof-of-work search: (m,) int32 words -> the smallest witness w in
+    [0, p) of `keccak_grind_plain`, as a (1,) int32 tensor on the device of
+    `words` (-1 if none exists); nothing is copied to the host."""
+    if words.dim() != 1 or not 1 <= pow_bits <= 31 or not 0 < p < 1 << 31:
+        raise ValueError(f"keccak_grind: {tuple(words.shape)} words, "
+                         f"{pow_bits} bits, p = {p}")
+    if words.device.type == "cpu":
+        return keccak_grind_plain(words, pow_bits, p)
+    kernels.require_cuda_tensor(words, "keccak_grind", torch.int32)
+    best = torch.full((1,), -1, dtype=torch.int32, device=words.device)
+    kernels.check(kernels.lib("keccak").keccak_grind(
+        words.data_ptr(), words.shape[0], pow_bits, p, grind_batch(pow_bits),
+        best.data_ptr(), kernels.stream_of(words)), "keccak_grind")
+    kernels.LAUNCHES["keccak_grind"] += 1
+    return best

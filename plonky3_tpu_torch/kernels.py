@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH = "arch=compute_90a,code=sm_90a"
 
 LAUNCHES = {"ntt_k1": 0, "ntt_k2": 0, "keccak_sponge": 0,
-            "keccak_compress": 0, "keccak_ladder": 0}
+            "keccak_compress": 0, "keccak_ladder": 0, "keccak256_chain": 0,
+            "keccak_grind": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +43,8 @@ _SIGNATURES = {
         "keccak_sponge_rows": [_P, _P, _L, _I, _P],
         "keccak_compress": [_P, _P, _P, _L, _P],
         "keccak_merkle_ladder": [_P, _P, _L, _I, _P],
+        "keccak256_chain": [_P, _P, _L, _I, _P],
+        "keccak_grind": [_P, _L, _I, _U, _I, _P, _P],
     },
 }
 

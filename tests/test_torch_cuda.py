@@ -116,3 +116,92 @@ def test_cuda_proof_equals_cpu_proof(cuda):
         cfg = keccak_stark_config(F, E, params, device=dev)
         out.append(dataclasses.astuple(prove(cfg, air, trace, [])))
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("n,k", [(0, 1), (1, 2), (33, 1), (34, 13),
+                                 (35, 2), (10536, 2)])
+def test_keccak256_chain_matches_plain(cuda, n, k):
+    from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.hashes import keccak_cuda as kc
+
+    words = _words(np.random.default_rng(n), (n,), 1 << 32, cuda)
+    before = kernels.LAUNCHES["keccak256_chain"]
+    got = kc.keccak256_chain(words, k)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["keccak256_chain"] - before == 1
+    assert torch.equal(got, kc.keccak256_chain_plain(words, k))
+
+
+@pytest.mark.parametrize("m,pow_bits", [(18, 1), (18, 2), (18, 16),
+                                        (33, 4), (40, 8), (40, 12)])
+def test_keccak_grind_matches_plain(cuda, m, pow_bits):
+    """pow_bits 1 and 2: many candidates of the first sweep pass, and the
+    smallest must win whatever the order of the blocks."""
+    from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.hashes import keccak_cuda as kc
+
+    words = _words(np.random.default_rng(m + pow_bits), (m,), 1 << 32, cuda)
+    before = kernels.LAUNCHES["keccak_grind"]
+    got = kc.keccak_grind(words, pow_bits, F.P)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["keccak_grind"] - before == 1
+    assert torch.equal(got, kc.keccak_grind_plain(words, pow_bits, F.P))
+
+
+def test_cuda_fast_proof_equals_cpu(cuda):
+    """The device-transcript prover on CUDA gives the CPU's proof, which
+    equals prove()'s, with one device-to-host copy."""
+    from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.models.poseidon2_air import (
+        Poseidon2VectorAir,
+        generate_vectorized_trace,
+    )
+    from plonky3_tpu_torch.stark import fast_prover
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+    from plonky3_tpu_torch.stark.prover import prove
+
+    params = FriParameters(log_blowup=1, log_final_poly_len=0,
+                           max_log_arity=3, num_queries=10,
+                           commit_proof_of_work_bits=0,
+                           query_proof_of_work_bits=8)
+    air = Poseidon2VectorAir(F, 16, vector_len=1)
+    inputs = F.rand_np(np.random.default_rng(3), (64, 16))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        trace, _ = generate_vectorized_trace(air, inputs, device=dev)
+        cfg = keccak_stark_config(F, E, params, device=dev)
+        before = (fast_prover.PULLS["count"], kernels.LAUNCHES["keccak_grind"])
+        out[dev.type] = fast_prover._prove_device_fs(cfg, air, trace, [])
+        if dev.type == "cuda":
+            assert fast_prover.PULLS["count"] - before[0] == 1
+            assert kernels.LAUNCHES["keccak_grind"] - before[1] == 1
+        out[dev.type + "_prove"] = prove(cfg, air, trace, [])
+    assert out["cuda"] == out["cpu"] == out["cpu_prove"] == out["cuda_prove"]
+
+
+def test_prove_fast_on_cuda_never_falls_back(cuda, monkeypatch):
+    """Out of the device path's scope, prove_fast on a CUDA trace raises
+    instead of proving with the host transcript."""
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.models.poseidon2_air import (
+        Poseidon2VectorAir,
+        generate_vectorized_trace,
+    )
+    from plonky3_tpu_torch.stark import fast_prover
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+
+    def unsupported(*args, **kw):
+        raise fast_prover._Unsupported("out of scope")
+
+    params = FriParameters(log_blowup=1, log_final_poly_len=0,
+                           max_log_arity=3, num_queries=10,
+                           commit_proof_of_work_bits=0,
+                           query_proof_of_work_bits=8)
+    air = Poseidon2VectorAir(F, 16, vector_len=1)
+    inputs = F.rand_np(np.random.default_rng(3), (64, 16))
+    trace, _ = generate_vectorized_trace(air, inputs, device=cuda)
+    cfg = keccak_stark_config(F, E, params, device=cuda)
+    monkeypatch.setattr(fast_prover, "_prove_device_fs", unsupported)
+    with pytest.raises(fast_prover._Unsupported):
+        fast_prover.prove_fast(cfg, air, trace, [])

@@ -1,9 +1,11 @@
 """End to end: the plonky3_tpu_torch prover's Proof equals the plonky3_tpu
 prover's Proof on the same trace (the setup of tests/test_device_fs.py:
 keccak config, Poseidon2VectorAir vector_len 1, log_n 6, 10 queries, 8-bit
-query PoW), and the reference verifier accepts the port's proof. Also the
-pieces of the prover that the end-to-end run does not isolate: FRI
-folding, the coset selectors and the bit-reversed quotient rows."""
+query PoW), and the reference verifier accepts the port's proof; the same
+for the port's device-transcript prover (`_prove_device_fs`, whose proof
+the reference's own tests hold equal to the reference's `prove_fast`).
+Also the pieces of the prover that the end-to-end run does not isolate:
+FRI folding, the coset selectors and the bit-reversed quotient rows."""
 
 import dataclasses
 
@@ -36,6 +38,7 @@ from plonky3_tpu_torch.models.poseidon2_air import (
     Poseidon2VectorAir,
     generate_vectorized_trace,
 )
+from plonky3_tpu_torch.stark import fast_prover
 from plonky3_tpu_torch.stark.config import keccak_stark_config
 from plonky3_tpu_torch.stark.prover import prove, quotient_values
 
@@ -79,7 +82,7 @@ def to_reference(x):
 @pytest.fixture(scope="module")
 def proofs():
     """The one cold reference prove of the port's tests, and the port's
-    prove of the same inputs on the CPU."""
+    prove and device-transcript prove of the same inputs on the CPU."""
     inputs = JF.rand_np(np.random.default_rng(3), (1 << LOG_N, 16))
     j_air = JAir(JF, 16, vector_len=1)
     j_cfg = j_config(JF, JE, PARAMS)
@@ -91,7 +94,11 @@ def proofs():
         air, trace_inputs_from_numpy(inputs, "cpu"), device="cpu")
     cfg = keccak_stark_config(F, E, fri_params_from(PARAMS), device="cpu")
     ours = prove(cfg, air, trace, [])
-    return dict(ref=ref, ours=ours, j_cfg=j_cfg, j_air=j_air)
+    pulls = fast_prover.PULLS["count"]
+    fast = fast_prover._prove_device_fs(cfg, air, trace, [])
+    return dict(ref=ref, ours=ours, fast=fast, j_cfg=j_cfg, j_air=j_air,
+                air=air, trace=trace,
+                fast_pulls=fast_prover.PULLS["count"] - pulls)
 
 
 def test_proof_equals_reference(proofs):
@@ -103,6 +110,55 @@ def test_reference_verifier_accepts_port_proof(proofs):
     rebuilt = to_reference(proofs["ours"])
     assert rebuilt == proofs["ref"]
     j_verify(proofs["j_cfg"], proofs["j_air"], rebuilt, [])
+
+
+def test_fast_proof_equals_reference(proofs):
+    """The device transcript gives the host transcript's proof, with one
+    device-to-host copy, and the reference verifier accepts it."""
+    assert as_plain(proofs["fast"]) == as_plain(proofs["ref"])
+    assert proofs["fast"] == proofs["ours"]
+    assert proofs["fast_pulls"] == 1
+    rebuilt = to_reference(proofs["fast"])
+    assert rebuilt == proofs["ref"]
+    j_verify(proofs["j_cfg"], proofs["j_air"], rebuilt, [])
+
+
+def test_fast_proof_with_cap_and_commit_pow(proofs):
+    """Merkle caps and a per-round FRI commit proof of work."""
+    params = dataclasses.replace(fri_params_from(PARAMS),
+                                 commit_proof_of_work_bits=4)
+    cfg = keccak_stark_config(F, E, params, cap_height=1, device="cpu")
+    air, trace = proofs["air"], proofs["trace"]
+    fast = fast_prover._prove_device_fs(cfg, air, trace, [])
+    assert fast == prove(cfg, air, trace, [])
+    assert any(fast.opening_proof.commit_pow_witnesses)
+
+
+def test_prove_fast_falls_back_without_query_pow(proofs):
+    """No query proof of work (grind(0)) stays on the device path: the
+    witness is 0 and the indices are sampled directly, as prove() does;
+    nothing falls back."""
+    params = dataclasses.replace(fri_params_from(PARAMS),
+                                 query_proof_of_work_bits=0)
+    cfg = keccak_stark_config(F, E, params, device="cpu")
+    air, trace = proofs["air"], proofs["trace"]
+    want = prove(cfg, air, trace, [])
+    assert want.opening_proof.query_pow_witness == 0
+    assert fast_prover._prove_device_fs(cfg, air, trace, []) == want
+    assert fast_prover.prove_fast(cfg, air, trace, []) == want
+
+
+def test_prove_fast_falls_back_on_cpu_only(proofs, monkeypatch):
+    """Outside the device path's scope a CPU trace is proved by prove();
+    the fallback is decided by the trace's device (a CUDA trace re-raises,
+    tests/test_torch_cuda.py)."""
+    def unsupported(*args, **kw):
+        raise fast_prover._Unsupported("out of scope")
+
+    monkeypatch.setattr(fast_prover, "_prove_device_fs", unsupported)
+    cfg = keccak_stark_config(F, E, fri_params_from(PARAMS), device="cpu")
+    assert fast_prover.prove_fast(cfg, proofs["air"], proofs["trace"],
+                                  []) == proofs["ours"]
 
 
 @pytest.mark.parametrize("log_h,log_arity", [(1, 1), (4, 1), (5, 3)])
