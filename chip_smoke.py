@@ -30,7 +30,8 @@ Phases, each printed as one JSON line:
            the same commit on the CPU, with its launch counts;
   small    prove() and the device-transcript prover on CUDA equal both on
            the CPU (plain versions) for Poseidon2VectorAir(KoalaBear, 16,
-           vector_len=8) at 2^8 rows;
+           vector_len=8) at 2^8 rows, and the port's verifier
+           (stark/verifier.py, host work) accepts every one of them;
   full     the benchmark workload: 2^20 Poseidon2 permutations, a
            2^17 x 1312 trace, keccak config, FriParameters
            .new_benchmark_high_arity(); two proves, the second timed, with
@@ -47,7 +48,13 @@ Phases, each printed as one JSON line:
            device-to-host copies, warm time against prove() in turns,
            peak memory, spans, per-proof bounds, the synchronizing calls
            of one prove (as torch.cuda.set_sync_debug_mode counts them)
-           and its profile.
+           and its profile;
+  verify   the port's verifier accepts the main path's full-size proof
+           (its host time, and the host's CPU) and rejects three probes
+           with the error class each must raise: a changed opened trace
+           value, a changed sibling digest of a FRI commit-phase opening,
+           and the honest proof held against the AIR with one more
+           constraint (the out-of-domain check at full size).
 Before the last line: one JSON object listing every kernel. The last line
 is {"ok": true, "device": {...}}. Any mismatch or error exits nonzero and
 prints no result. Imports nothing of JAX or of plonky3_tpu.
@@ -57,7 +64,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import json
+import os
 import re
 import shutil
 import statistics
@@ -610,6 +619,7 @@ def phase_small(torch, np):
     from plonky3_tpu_torch.stark.fast_prover import _prove_device_fs
     from plonky3_tpu_torch.stark.fast_prover import prove_fast
     from plonky3_tpu_torch.stark.prover import prove
+    from plonky3_tpu_torch.stark.verifier import verify
 
     params = FriParameters(log_blowup=1, log_final_poly_len=0,
                            max_log_arity=3, num_queries=10,
@@ -626,16 +636,22 @@ def phase_small(torch, np):
             config, air, trace = _workload(np, 8, p, dev)
             for name, fn in fns:
                 t0 = time.perf_counter()
-                proofs[case][name, dev] = as_plain(fn(config, air, trace, []))
+                proof = fn(config, air, trace, [])
                 torch.cuda.synchronize()
                 secs[f"{case}_{name}_{dev}_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                verify(config, air, proof, [])  # raises on a rejection
+                secs[f"{case}_{name}_{dev}_verify_s"] = (
+                    time.perf_counter() - t0)
+                proofs[case][name, dev] = as_plain(proof)
     for case, got in proofs.items():
         if len(set(got.values())) != 1:
             raise AssertionError(f"the small {case} proofs differ: "
                                  f"{sorted(got, key=got.get)}")
     emit({"phase": "small", "log_n": 8, "width": air.width,
           "cuda_equals_cpu": True, "fast_equals_prove": True,
-          "no_query_pow_equals_prove": True, **secs})
+          "no_query_pow_equals_prove": True,
+          "verified": sum(len(got) for got in proofs.values()), **secs})
 
 
 # the kernels the main path must launch
@@ -770,6 +786,7 @@ def phase_fast(torch, np, kernels, peak, full):
           "fast_median_s": fast_s,
           "prove_median_s": statistics.median(turns["prove"]),
           "equals_prove": True})
+    phase_verify(config, air, proof, log_n)
     spans, calls = {}, []
     real = dict(kernels._LIBS)
     kernels._LIBS.update({k: LaunchRecorder(v, calls)
@@ -809,6 +826,80 @@ def phase_fast(torch, np, kernels, peak, full):
                      "bound_us": chain_bound(peak, a[2], a[3])[0] * 1e3}
                     for a, us in zip(chains, launch_us["keccak256_chain"])]})
     return dict(launches=launches, per_proof=per_proof, device_ms=device_ms)
+
+
+def host_cpu() -> str:
+    """The first CPU's model name with its vendor, family, model and
+    clock from /proc/cpuinfo (where the name reads "unknown", family
+    and model still identify the part)."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    return (f"{info.get('model name', '?')} ({info.get('vendor_id', '?')} "
+            f"family {info.get('cpu family', '?')} model "
+            f"{info.get('model', '?')}, {info.get('cpu MHz', '?')} MHz)")
+
+
+def _bump_trace_value(proof, E):
+    ov = proof.opened_values
+    ov.trace_local[0] = E.add_h(ov.trace_local[0], E.one_h())
+
+
+def _bump_sibling_digest(proof, E):
+    sibs = proof.opening_proof.commit_phase_steps[0].opening_proof
+    sibs[0] = ((sibs[0][0] + 1) & 0xFFFFFFFF,) + tuple(sibs[0][1:])
+
+
+def _with_extra_constraint(air):
+    """`air` with one more constraint: its first trace column is zero."""
+    class Extra(type(air)):
+        def eval(self, b):
+            super().eval(b)
+            b.assert_zero(b.main.local[0])
+
+    extra = copy.copy(air)
+    extra.__class__ = Extra
+    return extra
+
+
+def phase_verify(config, air, proof, log_n):
+    """The port's verifier (host work) on the main path's full-size
+    proof, then on three probes, each of which must raise one of the
+    classes named for it; any other outcome fails the run."""
+    from plonky3_tpu_torch.stark.verifier import (
+        InvalidOpeningArgument, OodEvaluationMismatch, verify)
+
+    t0 = time.perf_counter()
+    verify(config, air, proof, [])  # raises on a rejection
+    verify_s = time.perf_counter() - t0
+    tamper = {}
+    for name, change, expected in (
+            ("trace_local", _bump_trace_value,
+             (OodEvaluationMismatch, InvalidOpeningArgument)),
+            ("commit_phase_sibling_digest", _bump_sibling_digest,
+             (InvalidOpeningArgument,)),
+            ("other_air", None, (OodEvaluationMismatch,))):
+        bad, probe_air = proof, air
+        if change is None:
+            probe_air = _with_extra_constraint(air)
+        else:
+            bad = copy.deepcopy(proof)
+            change(bad, config.E)
+        t0 = time.perf_counter()
+        try:
+            verify(config, probe_air, bad, [])
+        except expected as e:
+            tamper[name] = {"raised": type(e).__name__, "message": str(e),
+                            "s": time.perf_counter() - t0}
+        else:
+            raise AssertionError(f"verify accepted the probe {name}")
+    emit({"phase": "verify", "log_n": log_n, "accepted": True,
+          "verify_s": verify_s, "tamper": tamper, "host_cpu": host_cpu(),
+          "host_cpus": os.cpu_count()})
 
 
 def profile_prove(torch, prove, config, air, trace, warm_s):

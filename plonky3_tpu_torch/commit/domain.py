@@ -1,8 +1,9 @@
 """Two-adic multiplicative coset domains (PolynomialSpace).
 
-Port of the prover side of `plonky3_tpu/commit/domain.py`
-(commit/src/domain.rs:54, field/src/coset.rs:55): the coset shift·H for
-the two-adic subgroup H of size 2^log_n.
+Port of `plonky3_tpu/commit/domain.py` (commit/src/domain.rs:54,
+field/src/coset.rs:55): the coset shift·H for the two-adic subgroup H of
+size 2^log_n. The host methods take exact ints and extension tuples (the
+verifier's side); the device method gives the prover's selector tensors.
 
   vanishing  Z_{gH}(X) = (X/g)^|H| - 1
   selectors: first = Z/(X/g - 1), last = Z/(X/g - h^-1),
@@ -30,6 +31,9 @@ class TwoAdicCoset:
     def gen(self) -> int:
         """Generator h of the subgroup H."""
         return self.F.two_adic_generator_h(self.log_n)
+
+    def first_point(self) -> int:
+        return self.shift
 
     def next_point_ext(self, E, x):
         """x -> h·x for an extension point x (host tuple)."""
@@ -60,6 +64,23 @@ class TwoAdicCoset:
         order)."""
         return [evals[c::num_chunks] for c in range(num_chunks)]
 
+    # ---- host (verifier) values at one point --------------------------
+    def vanishing_poly_at_point_ext(self, E, point):
+        sp = E.base_mul_h(self.F.inv_h(self.shift), point)
+        return E.sub_h(E.exp_h(sp, self.size), E.one_h())
+
+    def selectors_at_point_ext(self, E, point):
+        sp = E.base_mul_h(self.F.inv_h(self.shift), point)
+        z_h = E.sub_h(E.exp_h(sp, self.size), E.one_h())
+        last_den = E.sub_h(sp, E.from_base_h(self.F.inv_h(self.gen)))
+        return dict(
+            is_first_row=E.mul_h(z_h, E.inv_h(E.sub_h(sp, E.one_h()))),
+            is_last_row=E.mul_h(z_h, E.inv_h(last_den)),
+            is_transition=last_den,
+            inv_vanishing=E.inv_h(z_h),
+        )
+
+    # ---- device selectors over a disjoint coset (prover) ---------------
     def selectors_on_coset_device(self, coset: "TwoAdicCoset", device):
         """Selector tensors at every point of `coset`, natural order
         (domain.rs selectors_on_coset; needs self.shift == 1)."""

@@ -55,8 +55,26 @@ class BinomialExtension:
     EXT_TWO_ADICITY: int
 
     # ---- host scalar math: D-tuples of standard-form ints --------------
+    def zero_h(self):
+        return (0,) * self.D
+
     def one_h(self):
         return (1,) + (0,) * (self.D - 1)
+
+    def from_base_h(self, x: int):
+        return (x % self.base.P,) + (0,) * (self.D - 1)
+
+    def add_h(self, a, b):
+        p = self.base.P
+        return tuple((x + y) % p for x, y in zip(a, b))
+
+    def sub_h(self, a, b):
+        p = self.base.P
+        return tuple((x - y) % p for x, y in zip(a, b))
+
+    def neg_h(self, a):
+        p = self.base.P
+        return tuple((-x) % p for x in a)
 
     def mul_h(self, a, b):
         p, d, w = self.base.P, self.D, self.W

@@ -1,6 +1,6 @@
 """TwoAdicFriPcs: the univariate PCS over FRI (fri/src/two_adic_pcs.rs:50).
 
-Port of the prover side of `plonky3_tpu/fri/two_adic_pcs.py`.
+Port of `plonky3_tpu/fri/two_adic_pcs.py`.
 
 commit (:300): per matrix, the coset LDE onto gK (shift GENERATOR/domain
 shift) in bit-reversed row order, then one Merkle commitment over all of
@@ -15,6 +15,9 @@ accumulate per height
 
 and run FRI on the reduced codewords, tallest first. Every sum here is an
 exact modular sum of products reduced mod P.
+
+verify (:683): observe every opened value, then `fri.verifier.verify_fri`
+on the host.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ..utils.timing import stage_timer
 from .config import FriParameters
 from .proof import BatchMultiOpening
 from .prover import prove_fri
+from .verifier import verify_fri
 
 _MRED_CHUNK = 1 << 15  # rows per Mred step (bounds the temporaries)
 
@@ -221,3 +225,15 @@ class TwoAdicFriPcs:
                               challenger, log_max, open_input_fn,
                               spans=spans)
         return opened_values, fri_proof
+
+    def verify(self, commitments_with_opening_points, proof, challenger):
+        """commitments_with_opening_points: [(commitment, [(TwoAdicCoset,
+        [(z, ys)])])]. Raises FriError."""
+        for _, mats in commitments_with_opening_points:
+            for _, points_and_values in mats:
+                for _, ys in points_and_values:
+                    for y in ys:
+                        challenger.observe_ext(y)
+        verify_fri(self.E, self.fri, proof, challenger,
+                   commitments_with_opening_points, self.mmcs,
+                   self.fri_mmcs)

@@ -5,25 +5,50 @@ examples/src/types.rs:19-42: leaves are SerializingHasher<PaddingFreeSponge
 <KeccakF, 25, 17, 4>>, nodes CompressionFunctionFromHasher<_, 2, 4>.
 Field rows serialize their Montgomery-form u32 words, two columns per u64
 lane (lo = column 2j, hi = column 2j+1, an odd tail zero-padded). Digests
-are (h, 8) int64 tensors of u32 words in (lo, hi) lane order: raw bits,
-not field elements. Both go through the kernel wrappers in `keccak_cuda`,
+are 8 u32 words in (lo, hi) lane order: raw bits, not field elements.
+On the device they are (h, 8) int64 tensors,
+and both device paths go through the kernel wrappers in `keccak_cuda`,
 which take int32 words: the leaf words reach the Merkle ladder as the
 sponge kernel wrote them, and a tree's levels are converted to int64 once.
+
+The host paths serve the verifier: `hash_rows_np` and `compress_np` hash
+a batch of rows or digest pairs as numpy uint32 words with the numpy
+keccak-f.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from .keccak import keccak_f1600_np
 from .keccak_cuda import (
     keccak_compress,
     keccak_merkle_ladder,
     keccak_sponge_rows,
 )
 
+RATE = 17  # u64 lanes absorbed a block
+OUT = 4  # u64 lanes of a digest (8 u32 words)
 _M32 = 0xFFFFFFFF
+
+
+def _lanes_np(words):
+    """(h, n) u32 words -> (h, ceil(n/2)) u64 lanes, word 2j the low half
+    of lane j."""
+    w = np.asarray(words).astype(np.uint64)
+    if w.shape[1] % 2:
+        w = np.concatenate([w, np.zeros((w.shape[0], 1), np.uint64)], axis=1)
+    return w[:, 0::2] | (w[:, 1::2] << np.uint64(32))
+
+
+def _digest_np(st):
+    """(h, 25) u64 states -> (h, 8) uint32 digest words."""
+    out = st[:, :OUT]
+    return np.stack([out & np.uint64(_M32), out >> np.uint64(32)],
+                    axis=-1).reshape(-1, 2 * OUT).astype(np.uint32)
 
 
 def _to_words(x):
@@ -52,6 +77,19 @@ class KeccakFieldSponge:
         """As `hash_rows_words`, as (h, 8) int64 digest words."""
         return _from_words(self.hash_rows_words(mats))
 
+    def hash_rows_np(self, mats):
+        """Host batch: same-height numpy matrices of Montgomery u32 words,
+        concatenated row-wise -> (h, 8) uint32 digest words."""
+        h = mats[0].shape[0]
+        lanes = _lanes_np(np.concatenate(
+            [np.asarray(m).reshape(h, -1) for m in mats], axis=1))
+        st = np.zeros((h, 25), np.uint64)
+        for start in range(0, lanes.shape[1], RATE):
+            block = lanes[:, start:start + RATE]
+            st[:, :block.shape[1]] = block  # overwrite mode
+            st = keccak_f1600_np(st)
+        return _digest_np(st)
+
 
 @dataclass(frozen=True)
 class KeccakCompressor:
@@ -72,3 +110,12 @@ class KeccakCompressor:
         n = words.shape[0]
         sizes = [n >> k for k in range((n // top).bit_length())]
         return list(torch.split(tree, sizes))
+
+    def compress_np(self, left, right):
+        """(h, 8) + (h, 8) u32 digest words (numpy) -> (h, 8) uint32."""
+        lanes = _lanes_np(np.concatenate([np.asarray(left),
+                                          np.asarray(right)], axis=1))
+        st = np.zeros((lanes.shape[0], 25), np.uint64)
+        st[:, :2 * OUT] = lanes
+        return _digest_np(keccak_f1600_np(st))
+

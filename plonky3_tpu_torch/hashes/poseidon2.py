@@ -5,7 +5,9 @@ Port of the array paths of `plonky3_tpu/hashes/poseidon2.py`
 external terminal rounds; external.rs:113 the MDS-light layer circ(2M4,
 M4, ...) with M4 = [[2,3,1,1],[1,2,3,1],[1,1,2,3],[3,1,1,2]];
 monty-31/src/poseidon2.rs:77-90 the internal layer J + Diag(V)). States
-are (..., 16) int64 tensors in Montgomery form.
+are (..., 16) int64 tensors in Montgomery form. `mds_light` is the same
+layer over any values through an ops protocol (add, double): the AIR's
+`eval` runs it on its symbolic values.
 """
 
 from __future__ import annotations
@@ -27,6 +29,36 @@ S_BOX_DEGREE = {"KoalaBear": 3}
 def diag_values_std(F) -> list:
     return [(num * pow(pow(2, den, F.P), F.P - 2, F.P)) % F.P
             for num, den in DIAGONAL_KOALABEAR_16]
+
+
+def _apply_mat4(ops, x):
+    """M4 @ x with M4 = [[2,3,1,1],[1,2,3,1],[1,1,2,3],[3,1,1,2]], the
+    add/double chain of external.rs:54-75."""
+    t01 = ops.add(x[0], x[1])
+    t23 = ops.add(x[2], x[3])
+    t0123 = ops.add(t01, t23)
+    t01123 = ops.add(t0123, x[1])
+    t01233 = ops.add(t0123, x[3])
+    return [ops.add(t01123, t01),  # 2x0 + 3x1 + x2 + x3
+            ops.add(t01123, ops.double(x[2])),  # x0 + 2x1 + 3x2 + x3
+            ops.add(t01233, t23),  # x0 + x1 + 2x2 + 3x3
+            ops.add(t01233, ops.double(x[0]))]  # 3x0 + x1 + x2 + 2x3
+
+
+def mds_light(ops, state):
+    """The external layer on a list of values: M4 on each block of four,
+    then each value plus the sum of its position across the blocks."""
+    w = len(state)
+    if w % 4:
+        raise ValueError(f"width {w} is not a multiple of 4")
+    st = [y for c in range(0, w, 4) for y in _apply_mat4(ops, state[c:c + 4])]
+    sums = []
+    for k in range(4):
+        acc = st[k]
+        for j in range(4 + k, w, 4):
+            acc = ops.add(acc, st[j])
+        sums.append(acc)
+    return [ops.add(st[i], sums[i % 4]) for i in range(w)]
 
 
 @dataclass(frozen=True)

@@ -3,7 +3,8 @@
 Port of `plonky3_tpu/merkle/extension_mmcs.py`
 (commit/src/adapters/extension_mmcs.rs:17): an (h, w, D) extension matrix
 is committed as the flattened (h, w·D) base matrix, and opened rows are
-regrouped into D-tuples.
+regrouped into D-tuples; to verify, they are flattened back and checked
+by the base MMCS.
 """
 
 from __future__ import annotations
@@ -44,3 +45,15 @@ class ExtensionMmcs:
     def _omb_finish(self, data, plan, pulled):
         rows_pq, sibs = self.inner._omb_finish(data, plan, pulled)
         return self._regroup(rows_pq), sibs
+
+    def verify_multi_batch(self, root_std, dims, indices, ext_rows_pq,
+                           sibling_hashes) -> bool:
+        """dims: [(height, extension width)] per matrix."""
+        return self.inner.verify_multi_batch(
+            root_std, [(h, w * self.D) for (h, w) in dims], indices,
+            [_flat_rows(rows) for rows in ext_rows_pq], sibling_hashes)
+
+
+def _flat_rows(ext_rows):
+    """Rows of extension tuples -> rows of base values."""
+    return [[c for e in row for c in e] for row in ext_rows]

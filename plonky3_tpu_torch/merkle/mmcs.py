@@ -20,6 +20,13 @@ normative wire order (level 0 first; within a level by ascending parent;
 within a group missing positions ascending). `PullBatcher` gathers the
 rows and digests of several trees and copies them to the host in one
 transfer.
+
+Verification of a pruned opening (mmcs/batch.rs verify_multi_batch) runs
+on the host with the compressor's exact numpy hashes, batched over the
+queries a level at a time. Opened rows arrive in standard form and are
+hashed as their Montgomery words, as the leaves were committed. Digests
+are raw keccak words, compared as they stand. The unpruned single-path
+verifiers (verify_batch, verify_batch_many) come with their first caller.
 """
 
 from __future__ import annotations
@@ -223,3 +230,100 @@ class MerkleTreeMmcs:
             for node, d in zip(nodes, lvl_digs[lvl].tolist()):
                 digests[(lvl, node)] = tuple(int(x) for x in d)
         return rows_pq, [digests[key] for key in plan["want"]]
+
+    # ---- verification (host) -------------------------------------------
+    def _cap_ok(self, root_std, log_max):
+        """The commitment as a (2^cap, 8) array, or None when its shape
+        does not match the effective cap height."""
+        cap = np.array(root_std, dtype=np.uint32)
+        if cap.ndim != 2 or cap.shape[0] != 1 << self._eff_cap(log_max):
+            return None
+        return cap
+
+    def verify_multi_batch(self, root_std, dims, indices, rows_pq,
+                           sibling_hashes) -> bool:
+        """Verify a pruned multi-opening. Duplicate indices must carry
+        identical rows; the sibling digests are consumed in wire order and
+        a trailing or missing one fails."""
+        Q = len(indices)
+        if len(rows_pq) != Q:
+            return False
+        heights = [d[0] for d in dims]
+        max_h = max(heights)
+        log_max = log2_strict(max_h)
+        order = sorted(range(len(dims)), key=lambda i: -heights[i])
+        for rows in rows_pq:
+            if len(rows) != len(dims):
+                return False
+            for i, d in enumerate(dims):
+                if len(rows[i]) != d[1]:
+                    return False
+        if min(heights) < (1 << self._eff_cap(log_max)):
+            return False
+
+        def tips_for(h, leads):
+            """Leaf digests of the height-h matrices' rows of the lead
+            queries, or None when no matrix has height h."""
+            parts = [np.array([rows_pq[q][i] for q in leads],
+                              dtype=np.uint32)
+                     for i in order if heights[i] == h]
+            if not parts:
+                return None
+            return self.sponge.hash_rows_np(
+                [self.F.to_monty_np(np.concatenate(parts, axis=1))])
+
+        # frontier: node -> the first query that opened it
+        lead_for = {}
+        for q, idx in enumerate(indices):
+            node = int(idx)
+            if node not in lead_for:
+                lead_for[node] = q
+            elif rows_pq[q] != rows_pq[lead_for[node]]:
+                return False
+        nodes = sorted(lead_for)
+        digests = tips_for(max_h, [lead_for[n] for n in nodes])
+        sibs = iter(sibling_hashes)
+        consumed, h = 0, max_h
+        for _ in range(log_max - self._eff_cap(log_max)):
+            h //= 2
+            node_set = set(nodes)
+            pos = {n: i for i, n in enumerate(nodes)}
+            left, right = [], []
+            try:
+                for n in nodes:
+                    if n & 1:
+                        if n ^ 1 in node_set:
+                            continue  # paired by its even sibling
+                        left.append(np.asarray(next(sibs),
+                                               dtype=np.uint32))
+                        right.append(digests[pos[n]])
+                        consumed += 1
+                    else:
+                        left.append(digests[pos[n]])
+                        if n ^ 1 in node_set:
+                            right.append(digests[pos[n ^ 1]])
+                        else:
+                            right.append(np.asarray(next(sibs),
+                                                    dtype=np.uint32))
+                            consumed += 1
+            except StopIteration:
+                return False
+            digests = self.compressor.compress_np(np.stack(left),
+                                                  np.stack(right))
+            parent_lead = {}
+            for n in nodes:
+                parent_lead.setdefault(n >> 1, lead_for[n])
+            lead_for = parent_lead
+            nodes = sorted(lead_for)
+            tips = tips_for(h, [lead_for[n] for n in nodes])
+            if tips is not None:
+                digests = self.compressor.compress_np(digests, tips)
+        if consumed != len(sibling_hashes):
+            return False
+        if self._eff_cap(log_max) == 0:
+            want = np.array(root_std, dtype=np.uint32)
+            return bool((digests[0] == want).all())
+        # frontier nodes that reach the cap layer each meet their entry
+        cap = self._cap_ok(root_std, log_max)
+        return cap is not None and all(
+            bool((digests[i] == cap[n]).all()) for i, n in enumerate(nodes))

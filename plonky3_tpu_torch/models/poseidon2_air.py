@@ -9,10 +9,12 @@ columns
     PR × post_sbox     partial rounds
     4 × post[W]        ending full rounds
 
-Constraints are emitted in the reference's order: per round, the post
-columns w-major and V-minor (PR rounds contribute V constraints each), and
-`fold_constraints_device` folds them with the alpha powers in that order.
-The fold is exact modular arithmetic; each constraint·alpha product is
+`eval` states the constraints over the builder's symbolic values (the
+verifier runs it at zeta); `fold_constraints_device` evaluates the same
+constraints over the whole quotient domain for the prover. Both take them
+in the reference's order: per round, the post columns w-major and V-minor
+(a partial round contributes V), so each gets the same alpha power. The
+fold is exact modular arithmetic; each constraint·alpha product is
 reduced mod P before the sums.
 """
 
@@ -23,10 +25,22 @@ import torch
 
 from .. import default_device
 from ..air.api import BaseAir
-from ..hashes.poseidon2 import Poseidon2, default_poseidon2
+from ..air.builder import stack_syms
+from ..hashes.poseidon2 import Poseidon2, default_poseidon2, mds_light
 
 HALF_FULL_ROUNDS = 4
 _FOLD_CHUNK = 1 << 15  # rows per fold step (bounds the temporaries)
+
+
+class _SymOps:
+    """The `mds_light` ops protocol over AIR Syms: the permutation and the
+    AIR share the linear layer (poseidon2/src/generic.rs:32)."""
+
+    def add(self, a, b):
+        return a + b
+
+    def double(self, a):
+        return a + a
 
 
 class Poseidon2VectorAir(BaseAir):
@@ -50,6 +64,55 @@ class Poseidon2VectorAir(BaseAir):
         partial rounds of V (poseidon2_air.py:201-206); degree 3."""
         V, W = self.V, self.W
         return 2 * HALF_FULL_ROUNDS * V * W + self.PR * V, 3
+
+    # -- column offsets within one permutation's block --------------------
+    def _off_full(self, section: int, r: int):
+        """The first post column of full round r of section 0 (beginning)
+        or 1 (ending)."""
+        base = self.W + r * self.W
+        if section == 1:
+            base += HALF_FULL_ROUNDS * self.W + self.PR
+        return base
+
+    def _off_partial(self, r: int):
+        """The post_sbox column of partial round r."""
+        return self.W + HALF_FULL_ROUNDS * self.W + r
+
+    def eval(self, b):
+        """The constraints, a block of V (one per permutation) for each
+        post column: computed round output minus the committed one."""
+        V, W, C = self.V, self.W, self.cols_per_perm
+        cols = b.main.local
+        ops = _SymOps()
+
+        def lane(c):
+            return stack_syms([cols[v * C + c] for v in range(V)])
+
+        def sbox(x):  # degree 3, no registers
+            return x * x * x
+
+        state = mds_light(ops, [lane(w) for w in range(W)])
+        for section, rcs in ((0, self.perm.rc_external_initial),
+                             (None, self.perm.rc_internal),
+                             (1, self.perm.rc_external_final)):
+            for r, rc in enumerate(rcs):
+                if section is None:  # partial round
+                    post = lane(self._off_partial(r))
+                    b.assert_eq_block(sbox(state[0] + int(rc)), post, V)
+                    state[0] = post
+                    total = state[0]
+                    for s in state[1:]:
+                        total = total + s
+                    state = [total + state[i] * int(self.perm.diag_std[i])
+                             for i in range(W)]
+                else:  # full round
+                    post_base = self._off_full(section, r)
+                    state = mds_light(ops, [sbox(state[w] + int(rc[w]))
+                                            for w in range(W)])
+                    for w in range(W):
+                        post = lane(post_base + w)
+                        b.assert_eq_block(state[w], post, V)
+                        state[w] = post
 
     def fold_constraints_device(self, F, E, local, nxt, sels, publics_m,
                                 alpha_pows):
