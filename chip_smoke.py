@@ -24,7 +24,13 @@ Phases, each printed as one JSON line:
            the ladder replaced. The transcript's keccak-256 kernels
            likewise: the digest chain at the padding's edge lengths and
            at the main path's longest call (10,536 words), the
-           proof-of-work grind at 1 to 16 bits;
+           proof-of-work grind at 1 to 16 bits; and the Poseidon2 duplex
+           transcript's: the duplex chain at 0, 1 and 2 blocks, at partial
+           last blocks and at its longest call on the Poseidon2 path
+           (10,528 words, 658 blocks), the grind at 1 to 16 bits from two
+           staged states. Kernel times are device time under
+           torch.profiler (`ms`), CUDA events around the call beside it
+           (`wall_ms`);
   mixed    a commit of mixed-height matrices (injection levels through
            keccak_compress, the rest through the ladder) on CUDA equals
            the same commit on the CPU, with its launch counts;
@@ -37,8 +43,9 @@ Phases, each printed as one JSON line:
            .new_benchmark_high_arity(); two proves, the second timed, with
            the kernel launch counts of that prove; then a prove with
            per-stage spans ("spans") that also records every kernel
-           launch's shape ("per_proof": each kernel's launches and bound
-           summed over one proof), and one under torch.profiler
+           launch's shape and its device time by CUDA events
+           ("per_proof": each kernel's launches, bound and time summed
+           over one proof), and one under torch.profiler
            ("profile": device time by kernel, the port's own kernels
            listed apart, the compressor's time, device idle share);
   fast     the main path: the same workload through the device-transcript
@@ -54,7 +61,18 @@ Phases, each printed as one JSON line:
            with the error class each must raise: a changed opened trace
            value, a changed sibling digest of a FRI commit-phase opening,
            and the honest proof held against the AIR with one more
-           constraint (the out-of-domain check at full size).
+           constraint (the out-of-domain check at full size);
+  poseidon2 the same workload under poseidon2_stark_config (Poseidon2
+           sponge and compression, field digests, the duplex transcript):
+           the device-transcript prover cold and warm, its proof equal to
+           prove()'s, warm times of both in turns, launches (the duplex
+           chain and grind, no keccak kernel), one device-to-host copy,
+           peak memory, spans, per-proof bounds, synchronizing calls,
+           profile; then the port's verifier accepts the proof and
+           rejects a changed opened trace value, a changed trace root and
+           a changed commit-phase sibling digest.
+Every profile checks that it recorded each of the port's kernels as many
+times as the prove launched it, and profiles again where it did not.
 Before the last line: one JSON object listing every kernel. The last line
 is {"ok": true, "device": {...}}. Any mismatch or error exits nonzero and
 prints no result. Imports nothing of JAX or of plonky3_tpu.
@@ -102,23 +120,78 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def profiled_ms(torch, fn, reps: int, tag: str = "") -> float:
-    """Device milliseconds of fn() per run: the summed time of the CUDA
-    kernels whose name holds `tag` (every kernel for ""), under
-    torch.profiler over reps runs after one warm-up. Unlike cuda_ms it
-    leaves out the gaps in which the device waits for the host."""
+# torch.profiler passes over a tagged profile that misses launches
+PROFILE_TRIES = 2
+
+
+def _profile(torch, fn):
+    """fn() under torch.profiler, after a warm-up step whose records are
+    dropped: the profiler loses the device records of some launches, most
+    often the first of a profile, and the warm-up step takes that place."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return prof
+
+
+def profiled_ms(torch, fn, reps: int, tag: str = ""):
+    """(ms, source): device milliseconds of fn() per run, the summed time
+    of the CUDA kernels whose name holds `tag` (every kernel for ""),
+    under torch.profiler over reps runs after one warm-up. Unlike cuda_ms
+    it leaves out the gaps in which the device waits for the host.
+
+    With a tag, the kernels named are the port's own, and the profile
+    must record as many of them as the wrappers launched
+    (`kernels.LAUNCHES`); one that did not is taken again, up to
+    PROFILE_TRIES times. `source` says what the time is: "profiler" (every
+    launch recorded), "profiler_mean" (the mean recorded launch times the
+    launches a run: a device time, but from fewer launches) or "events"
+    (none recorded: CUDA events around the runs, back to back, host gaps
+    included). Every short profile is listed in PROFILE_SHORT."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from plonky3_tpu_torch import kernels
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def runs():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA and tag in ev.key
-               ) / 1e3 / reps
+
+    for _ in range(PROFILE_TRIES):
+        before = sum(kernels.LAUNCHES.values())
+        prof = _profile(torch, runs)
+        launched = sum(kernels.LAUNCHES.values()) - before
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and tag in ev.key]
+        us = sum(ev.self_device_time_total for ev in evs)
+        recorded = sum(ev.count for ev in evs)
+        if not tag or recorded == launched:
+            return us / 1e3 / reps, "profiler"
+        PROFILE_SHORT.append({"tag": tag, "recorded": recorded,
+                              "launched": launched})
+    if recorded:
+        return us / recorded * launched / 1e3 / reps, "profiler_mean"
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    runs()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, "events"
+
+
+# every tagged profile that missed launches, retries included
+PROFILE_SHORT = []
 
 
 def bound_ms(peak, n_bytes: float, alu_ops: float, mul_ops: float = 0):
@@ -191,6 +264,38 @@ def ladder_bound(peak, m, nodes):
     return bound_ms(peak, 32 * (m + nodes), nodes * KECCAK_F_ALU)
 
 
+# 32-bit instructions of one width-24 Poseidon2 permutation
+# (csrc/poseidon2.cu), by pipe. A modular add is an add and a reduction
+# min(s, s - p): 2 ALU. A Montgomery product is the 64-bit product, the
+# quotient word and its product with p (3 multiplies) and the corrected
+# difference of the high words (1 ALU). The external layer: M4 on each of
+# the 6 blocks of four (11 adds), the 4 position sums over the blocks (5
+# adds each), one add a lane: 110 adds. An external round: a constant add
+# and the cube (2 products) on each of the 24 lanes, then the layer. An
+# internal round: the constant add and the cube on lane 0, the lane sum
+# (23 adds), a product and an add on each lane. The layer runs once before
+# the rounds; 8 external rounds, 23 internal.
+P2_ADDS = 110 + 8 * (24 + 110) + 23 * (1 + 23 + 24)
+P2_PRODUCTS = 8 * 24 * 2 + 23 * (2 + 24)
+POSEIDON2_24_ALU = 2 * P2_ADDS + P2_PRODUCTS
+POSEIDON2_24_MUL = 3 * P2_PRODUCTS
+P2_TABLE_WORDS = 4 * 24 + 23 + 4 * 24 + 24  # the kernels' constant table
+
+
+def p2_chain_bound(peak, n):
+    """Duplex absorb of n words: max(1, ceil(n/16)) permutations one after
+    another; the state, the words and the table read, the state written."""
+    nb = max(1, -(-n // 16))
+    return bound_ms(peak, 4 * (24 + n + P2_TABLE_WORDS + 24),
+                    nb * POSEIDON2_24_ALU, nb * POSEIDON2_24_MUL)
+
+
+def p2_grind_bound(peak, w):
+    """The least work that finds witness w: w + 1 permutations."""
+    return bound_ms(peak, 4 * (24 + P2_TABLE_WORDS + 1),
+                    (w + 1) * POSEIDON2_24_ALU, (w + 1) * POSEIDON2_24_MUL)
+
+
 def chain_bound(peak, n, k):
     """keccak-256 of n words, then k - 1 re-hashes of the digest: n//34 + 1
     + k - 1 keccak-f, one after another (the bound counts no latency, so
@@ -209,28 +314,55 @@ def grind_bound(peak, m, w):
 
 class LaunchRecorder:
     """Stands in for a loaded kernel library (`kernels._LIBS[name]`) and
-    records the arguments of every C entry called through it."""
+    records every C entry called through it: its name, its arguments
+    (sizes, widths, levels) and two CUDA events on the current stream
+    around the launch, which time it on the device (a profile can miss
+    launches, see `_profile`; events cannot)."""
 
-    def __init__(self, lib, calls):
-        self._lib, self._calls = lib, calls
+    def __init__(self, lib, calls, torch):
+        self._lib, self._calls, self._torch = lib, calls, torch
 
     def __getattr__(self, fn):
         f = getattr(self._lib, fn)
+        cuda = self._torch.cuda
 
         def call(*args):
-            self._calls.append((fn, args))
-            return f(*args)
+            start = cuda.Event(enable_timing=True)
+            end = cuda.Event(enable_timing=True)
+            start.record()
+            rc = f(*args)
+            end.record()
+            self._calls.append((fn, args, start, end))
+            return rc
 
         return call
 
 
+def recorded(torch, kernels, fn):
+    """fn() with every kernel launch recorded: (its result, [(C entry,
+    arguments, device ms)])."""
+    calls = []
+    real = dict(kernels._LIBS)
+    kernels._LIBS.update({k: LaunchRecorder(v, calls, torch)
+                          for k, v in real.items()})
+    try:
+        out = fn()
+    finally:
+        kernels._LIBS.update(real)
+    torch.cuda.synchronize()
+    return out, [(f, a, start.elapsed_time(end))
+                 for f, a, start, end in calls]
+
+
 def launch_bounds(peak, calls, witnesses=()):
-    """{record name: {launches, bound_ms}} summed over recorded launches
-    (the C entries' arguments: sizes, widths, levels; `witnesses`, the
-    grinds' results in launch order)."""
-    out = collections.defaultdict(lambda: {"launches": 0, "bound_ms": 0.0})
+    """{record name: {launches, bound_ms, ms}} summed over recorded
+    launches (the C entries' arguments: sizes, widths, levels;
+    `witnesses`, the grinds' results in launch order; ms, the launches'
+    device time by CUDA events)."""
+    out = collections.defaultdict(
+        lambda: {"launches": 0, "bound_ms": 0.0, "ms": 0.0})
     found = iter(witnesses)
-    for fn, a in calls:
+    for fn, a, ms in calls:
         if fn == "ntt_k1":
             name, b = "ntt_k1", ntt_bound(peak, "k1", a[4], a[5], a[6],
                                           bool(a[7]), a[8])
@@ -245,12 +377,17 @@ def launch_bounds(peak, calls, witnesses=()):
             name, b = "keccak256_chain", chain_bound(peak, a[2], a[3])
         elif fn == "keccak_grind":
             name, b = "keccak_grind", grind_bound(peak, a[1], next(found))
+        elif fn == "poseidon2_duplex_chain":
+            name, b = "poseidon2_duplex_chain", p2_chain_bound(peak, a[2])
+        elif fn == "poseidon2_grind":
+            name, b = "poseidon2_grind", p2_grind_bound(peak, next(found))
         else:
             m, levels = a[2], a[3]
             name, b = "keccak_ladder", ladder_bound(peak, m,
                                                      m - (m >> levels))
         out[name]["launches"] += 1
         out[name]["bound_ms"] += b[0]
+        out[name]["ms"] += ms
     return dict(out)
 
 
@@ -316,6 +453,20 @@ def _rand_words(torch, rng, shape, P):
     return torch.from_numpy(x).to(torch.int32).cuda()
 
 
+def compare(what, got, want):
+    """A kernel's output against its plain version's: the max absolute
+    difference, which must be 0."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (got.to(torch.int64) - want.to(torch.int64)).abs().max()
+    err = int(err) if got.numel() else 0
+    if got.shape != want.shape or err != 0:
+        raise AssertionError(f"{what}: kernel differs from plain "
+                             f"(max abs err {err})")
+    return err
+
+
 def phase_kernels(torch, np, peak):
     """Every kernel against its plain version; returns the per-kernel
     records of the main-path shapes."""
@@ -328,15 +479,6 @@ def phase_kernels(torch, np, peak):
 
     rng = np.random.default_rng(5)
     records = {}
-
-    def compare(what, got, want):
-        torch.cuda.synchronize()
-        err = (got.to(torch.int64) - want.to(torch.int64)).abs().max()
-        err = int(err) if got.numel() else 0
-        if got.shape != want.shape or err != 0:
-            raise AssertionError(f"{what}: kernel differs from plain "
-                                 f"(max abs err {err})")
-        return err
 
     # NTT: (log_n, w, inverse, zero_top); the first four are the main
     # path's shapes (trace iDFT and LDE, quotient-chunk iDFT and LDE),
@@ -373,25 +515,33 @@ def phase_kernels(torch, np, peak):
             log_a, log_b = s1.log_a, s1.log_b
             y1 = torch.empty((n, w), dtype=torch.int32, device=x.device)
             out = torch.empty_like(y1)
-            k1 = cuda_ms(torch, lambda: nc.launch(F, s1, x, y1, inverse), 10)
-            k2 = cuda_ms(torch, lambda: nc.launch(F, s2, y1, out, inverse),
-                         10)
+            # device time (ms); CUDA events around the call beside it
+            run1 = lambda: nc.launch(F, s1, x, y1, inverse)  # noqa: E731
+            run2 = lambda: nc.launch(F, s2, y1, out, inverse)  # noqa: E731
+            k1, k1_src = profiled_ms(torch, run1, 10, "ntt_kernel<")
+            k2, k2_src = profiled_ms(torch, run2, 10, "ntt_kernel<")
+            k1_wall, k2_wall = cuda_ms(torch, run1, 10), cuda_ms(torch, run2,
+                                                                 10)
             plain = cuda_ms(torch, lambda: nc.dif_fused_plain(
                 F, x, log_n, inverse, zero_top), 2)
             b1 = ntt_bound(peak, "k1", log_a, log_b, w, zero_top)
             b2 = ntt_bound(peak, "k2", log_a, log_b, w, zero_top)
             sh1, sh2 = share("ntt_k1", b1[0], k1), share("ntt_k2", b2[0], k2)
-            rec.update(k1_ms=k1, k2_ms=k2, plain_ms=plain,
+            rec.update(k1_ms=k1, k2_ms=k2, k1_ms_source=k1_src,
+                       k2_ms_source=k2_src, k1_wall_ms=k1_wall,
+                       k2_wall_ms=k2_wall, plain_ms=plain,
                        k1_bound_ms=b1[0], k1_bound_by=b1[1], k1_share=sh1,
                        k2_bound_ms=b2[0], k2_bound_by=b2[1], k2_share=sh2)
             if (log_n, w) == (18, 1312):
                 src = "plonky3_tpu_torch/csrc/ntt.cu"
-                for name, ms, b, sh, line in (("ntt_k1", k1, b1, sh1, 149),
-                                              ("ntt_k2", k2, b2, sh2, 158)):
+                for name, ms, ms_src, wall, b, sh, line in (
+                        ("ntt_k1", k1, k1_src, k1_wall, b1, sh1, 149),
+                        ("ntt_k2", k2, k2_src, k2_wall, b2, sh2, 158)):
                     records[name] = dict(
                         name=name, route="cuda", source=src,
                         replaces=f"plonky3_tpu/ops/ntt_pallas.py:{line}",
-                        max_abs_err=err, ms=ms, plain_ms=plain,
+                        max_abs_err=err, ms=ms, ms_source=ms_src,
+                        wall_ms=wall, plain_ms=plain,
                         bound_ms=b[0], bound_by=b[1], library_ms=None,
                         share=sh, shape=[log_n, w, "zero_top"])
         emit({"phase": "kernels", "kernel": "ntt", **rec})
@@ -405,17 +555,21 @@ def phase_kernels(torch, np, peak):
         err = compare(f"sponge {h} {w}", got, want)
         rec = {"h": h, "w": w, "max_abs_err": err}
         if h >= 1 << 18:
-            ms = cuda_ms(torch, lambda: kc.keccak_sponge_rows(flat), 10)
+            run = lambda: kc.keccak_sponge_rows(flat)  # noqa: E731
+            ms, ms_src = profiled_ms(torch, run, 10, "sponge_rows_kernel")
+            wall = cuda_ms(torch, run, 10)
             plain = cuda_ms(torch, lambda: kc.keccak_sponge_rows_plain(flat),
                             1)
             b = sponge_bound(peak, h, w)
-            rec.update(ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+            rec.update(ms=ms, ms_source=ms_src, wall_ms=wall, plain_ms=plain,
+                       bound_ms=b[0], bound_by=b[1],
                        share=share(f"sponge {w}", b[0], ms))
             if w == 1312:
                 records["keccak_sponge"] = dict(
                     name="keccak_sponge", route="cuda", source=src,
                     replaces="plonky3_tpu/hashes/keccak_pallas.py:124",
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
+                    max_abs_err=err, ms=ms, ms_source=ms_src, wall_ms=wall,
+                    plain_ms=plain, bound_ms=b[0],
                     bound_by=b[1], library_ms=None, share=rec["share"],
                     shape=[h, w])
         emit({"phase": "kernels", "kernel": "keccak_sponge", **rec})
@@ -428,16 +582,20 @@ def phase_kernels(torch, np, peak):
         err = compare(f"compress {h}", got, want)
         rec = {"h": h, "max_abs_err": err}
         if h == 1 << 17:
-            ms = cuda_ms(torch, lambda: kc.keccak_compress(left, right), 20)
+            run = lambda: kc.keccak_compress(left, right)  # noqa: E731
+            ms, ms_src = profiled_ms(torch, run, 20, "compress_kernel")
+            wall = cuda_ms(torch, run, 20)
             plain = cuda_ms(torch,
                             lambda: kc.keccak_compress_plain(left, right), 2)
             b = compress_bound(peak, h)
-            rec.update(ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+            rec.update(ms=ms, ms_source=ms_src, wall_ms=wall, plain_ms=plain,
+                       bound_ms=b[0], bound_by=b[1],
                        share=share("compress", b[0], ms))
             records["keccak_compress"] = dict(
                 name="keccak_compress", route="cuda", source=src,
                 replaces="plonky3_tpu/hashes/keccak_pallas.py:227",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
+                max_abs_err=err, ms=ms, ms_source=ms_src, wall_ms=wall,
+                plain_ms=plain, bound_ms=b[0],
                 bound_by=b[1], library_ms=None, share=rec["share"],
                 shape=[h, 8])
         emit({"phase": "kernels", "kernel": "keccak_compress", **rec})
@@ -461,18 +619,18 @@ def phase_kernels(torch, np, peak):
             # ms: the ladder kernel's device time; *_wall_ms: CUDA events
             # around the Python call, host dispatch gaps included
             ladder = lambda: kc.keccak_merkle_ladder(d)  # noqa: E731
-            ms = profiled_ms(torch, ladder, 20, "merkle_ladder_kernel")
+            ms, ms_src = profiled_ms(torch, ladder, 20, "merkle_ladder_kernel")
             wall = cuda_ms(torch, ladder, 20)
             leaves = d.to(torch.int64) & 0xFFFFFFFF
             # the route it replaced: one compress_device call per level
             old = lambda: levels_by_compress(comp, leaves)  # noqa: E731
             old_wall = cuda_ms(torch, old, 10)
-            old_dev = profiled_ms(torch, old, 5)
+            old_dev = profiled_ms(torch, old, 5)[0]
             route = cuda_ms(torch, lambda: comp.ladder_device(d), 10)
             plain = cuda_ms(torch, lambda: kc.keccak_merkle_ladder_plain(d),
                             1)
             b = ladder_bound(peak, n, n - 1)
-            rec.update(ms=ms, wall_ms=wall, plain_ms=plain,
+            rec.update(ms=ms, ms_source=ms_src, wall_ms=wall, plain_ms=plain,
                        per_level_route_device_ms=old_dev,
                        per_level_route_wall_ms=old_wall,
                        ladder_device_wall_ms=route,
@@ -483,9 +641,10 @@ def phase_kernels(torch, np, peak):
             records["keccak_ladder"] = dict(
                 name="keccak_ladder", route="cuda", source=src,
                 replaces="plonky3_tpu/hashes/keccak_pallas.py:227",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
-                bound_by=b[1], library_ms=None, share=rec["share"],
-                per_level_route_device_ms=old_dev, shape=[n, 8])
+                max_abs_err=err, ms=ms, ms_source=ms_src, wall_ms=wall,
+                plain_ms=plain, bound_ms=b[0], bound_by=b[1], library_ms=None,
+                share=rec["share"], per_level_route_device_ms=old_dev,
+                shape=[n, 8])
         emit({"phase": "kernels", "kernel": "keccak_ladder", **rec})
 
     # The transcript's digest chain: the padding's edge lengths (33: both
@@ -503,19 +662,22 @@ def phase_kernels(torch, np, peak):
             rec = {"n": n, "k": k, "max_abs_err": err}
             if (n, k) == (10536, 2):
                 chain = lambda: kc.keccak256_chain(words, 2)  # noqa: E731
-                ms = profiled_ms(torch, chain, 10, "keccak256_chain_kernel")
+                ms, ms_src = profiled_ms(torch, chain, 10,
+                                         "keccak256_chain_kernel")
                 wall = cuda_ms(torch, chain, 10)
-                plain = cuda_ms(torch,
-                                lambda: kc.keccak256_chain_plain(words, 2), 1)
+                # one run: the plain chain takes some 23 s here
+                plain = once_ms(torch, lambda: kc.keccak256_chain_plain(
+                    words, 2))[1]
                 b = chain_bound(peak, n, k)
-                rec.update(ms=ms, wall_ms=wall, plain_ms=plain,
-                           bound_ms=b[0], bound_by=b[1],
+                rec.update(ms=ms, ms_source=ms_src, wall_ms=wall,
+                           plain_ms=plain, bound_ms=b[0], bound_by=b[1],
                            share=share("chain", b[0], ms))
                 records["keccak256_chain"] = dict(
                     name="keccak256_chain", route="cuda", source=src,
                     replaces=f"{serializing}:57", max_abs_err=err, ms=ms,
-                    plain_ms=plain, bound_ms=b[0], bound_by=b[1],
-                    library_ms=None, share=rec["share"], shape=[n, k])
+                    ms_source=ms_src, wall_ms=wall, plain_ms=plain,
+                    bound_ms=b[0], bound_by=b[1], library_ms=None,
+                    share=rec["share"], shape=[n, k])
             emit({"phase": "kernels", "kernel": "keccak256_chain", **rec})
 
     # The proof-of-work grind: 18 words (the main path's message), 33 (the
@@ -532,22 +694,115 @@ def phase_kernels(torch, np, peak):
             rec = {"m": m, "pow_bits": bits, "witness": w, "max_abs_err": err}
             if (m, bits) == (18, 16):
                 grind = lambda: kc.keccak_grind(words, 16, F.P)  # noqa: E731
-                ms = profiled_ms(torch, grind, 10, "keccak_grind_kernel")
+                ms, ms_src = profiled_ms(torch, grind, 10,
+                                         "keccak_grind_kernel")
                 wall = cuda_ms(torch, grind, 10)
                 plain = cuda_ms(torch, lambda: kc.keccak_grind_plain(
                     words, 16, F.P), 2)
                 b = grind_bound(peak, m, w)
-                rec.update(ms=ms, wall_ms=wall, plain_ms=plain,
-                           bound_ms=b[0], bound_by=b[1],
+                rec.update(ms=ms, ms_source=ms_src, wall_ms=wall,
+                           plain_ms=plain, bound_ms=b[0], bound_by=b[1],
                            share=share("grind", b[0], ms))
                 records["keccak_grind"] = dict(
                     name="keccak_grind", route="cuda", source=src,
                     replaces=f"{serializing}:141", max_abs_err=err, ms=ms,
-                    plain_ms=plain, bound_ms=b[0], bound_by=b[1],
-                    library_ms=None, share=rec["share"], shape=[m, 16],
-                    witness=w)
+                    ms_source=ms_src, wall_ms=wall, plain_ms=plain,
+                    bound_ms=b[0], bound_by=b[1], library_ms=None,
+                    share=rec["share"], shape=[m, 16], witness=w)
             emit({"phase": "kernels", "kernel": "keccak_grind", **rec})
+    phase_kernels_poseidon2(torch, np, peak, rng, records)
     return records
+
+
+# the longest duplex absorb of the Poseidon2 path: the opened values before
+# alpha2, 2 × 1312 trace values and 2 quotient chunks of 4, 4 words each
+P2_ALPHA2_WORDS = (2 * 1312 + 2 * 4) * 4
+
+
+def once_ms(torch, fn):
+    """(fn(), its milliseconds by CUDA events) for one run: the plain
+    versions, seconds long, run once."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_kernels_poseidon2(torch, np, peak, rng, records):
+    """The Poseidon2 duplex transcript's kernels against their plain
+    versions: the chain at 0 blocks (a bare permutation), 1 and 2 blocks,
+    partial last blocks of 1 and 15 lanes, and the Poseidon2 path's
+    longest absorb; the grind at 1 to 16 bits from two staged states."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.hashes import poseidon2_cuda as pc
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+
+    perm = default_poseidon2(F, 24)
+    src = "plonky3_tpu_torch/csrc/poseidon2.cu"
+    duplex = "plonky3_tpu/challenger/device_duplex.py"
+    for n in (0, 16, 32, 1, 15, 17, 31, P2_ALPHA2_WORDS):
+        state = _rand_words(torch, rng, (24,), F.P)
+        words = _rand_words(torch, rng, (n,), F.P)
+        got = pc.poseidon2_duplex_chain(perm, state, words)
+        want, plain = once_ms(torch, lambda: pc.poseidon2_duplex_chain_plain(
+            perm, state, words))
+        err = compare(f"poseidon2 chain {n}", got, want)
+        nb, k = pc._blocks(n)
+        rec = {"n": n, "blocks": nb, "last_block_lanes": k,
+               "max_abs_err": err, "plain_ms": plain}
+        if n == P2_ALPHA2_WORDS:
+            chain = lambda: pc.poseidon2_duplex_chain(  # noqa: E731
+                perm, state, words)
+            ms, ms_src = profiled_ms(torch, chain, 10, "duplex_chain_kernel")
+            b = p2_chain_bound(peak, n)
+            rec.update(ms=ms, ms_source=ms_src,
+                       wall_ms=cuda_ms(torch, chain, 10),
+                       us_per_permutation=ms * 1e3 / nb, bound_ms=b[0],
+                       bound_by=b[1], share=share("poseidon2 chain", b[0],
+                                                  ms))
+            records["poseidon2_duplex_chain"] = dict(
+                name="poseidon2_duplex_chain", route="cuda", source=src,
+                replaces=f"{duplex}:58", max_abs_err=err, ms=ms,
+                ms_source=ms_src, wall_ms=rec["wall_ms"], plain_ms=plain,
+                bound_ms=b[0], bound_by=b[1],
+                library_ms=None, share=rec["share"],
+                us_per_permutation=rec["us_per_permutation"],
+                shape=[n, nb])
+        emit({"phase": "kernels", "kernel": "poseidon2_duplex_chain", **rec})
+
+    # lane 10: the witness's lane at the main path's query grind (after the
+    # final polynomial's 4 words and the 6 arities)
+    for lane in (0, 10):
+        base = _rand_words(torch, rng, (24,), F.P)
+        for bits in (1, 4, 8, 12, 16):
+            got = pc.poseidon2_grind(perm, base, lane, bits)
+            want, plain = once_ms(torch, lambda: pc.poseidon2_grind_plain(
+                perm, base, lane, bits))
+            err = compare(f"poseidon2 grind {lane} {bits}", got, want)
+            w = int(got[0])
+            rec = {"lane": lane, "pow_bits": bits, "witness": w,
+                   "max_abs_err": err, "plain_ms": plain}
+            if (lane, bits) == (10, 16):
+                grind = lambda: pc.poseidon2_grind(  # noqa: E731
+                    perm, base, lane, 16)
+                ms, ms_src = profiled_ms(torch, grind, 10,
+                                         "duplex_grind_kernel")
+                b = p2_grind_bound(peak, w)
+                rec.update(ms=ms, ms_source=ms_src,
+                           wall_ms=cuda_ms(torch, grind, 10),
+                           bound_ms=b[0], bound_by=b[1],
+                           share=share("poseidon2 grind", b[0], ms))
+                records["poseidon2_grind"] = dict(
+                    name="poseidon2_grind", route="cuda", source=src,
+                    replaces=f"{duplex}:146", max_abs_err=err, ms=ms,
+                    ms_source=ms_src, wall_ms=rec["wall_ms"], plain_ms=plain,
+                    bound_ms=b[0], bound_by=b[1],
+                    library_ms=None, share=rec["share"], shape=[lane, 16],
+                    witness=w)
+            emit({"phase": "kernels", "kernel": "poseidon2_grind", **rec})
 
 
 def phase_mixed(torch, np, kernels):
@@ -591,21 +846,21 @@ def as_plain(x):
     return x
 
 
-def _workload(np, log_n, params, device):
+def _workload(np, log_n, params, device, merkle="keccak"):
     from plonky3_tpu_torch.compat import trace_inputs_from_numpy
     from plonky3_tpu_torch.fields import KoalaBear as F
     from plonky3_tpu_torch.fields import KoalaBearExt4 as E
     from plonky3_tpu_torch.models.poseidon2_air import (
         Poseidon2VectorAir, generate_vectorized_trace)
-    from plonky3_tpu_torch.stark.config import keccak_stark_config
+    from plonky3_tpu_torch.stark import config as stark_config
 
     air = Poseidon2VectorAir(F, 16, vector_len=8)
     rng = np.random.default_rng(1)
     inputs = trace_inputs_from_numpy(F.rand_np(rng, (8 << log_n, 16)),
                                      device)
     trace, _ = generate_vectorized_trace(air, inputs, device=device)
-    config = keccak_stark_config(F, E, params, device=device)
-    return config, air, trace
+    make = getattr(stark_config, f"{merkle}_stark_config")
+    return make(F, E, params, device=device), air, trace
 
 
 def phase_small(torch, np):
@@ -696,18 +951,14 @@ def phase_full(torch, np, kernels, peak):
           "perms_per_s": n_perms / warm_s,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
           "launches": launches})
-    spans, calls = {}, []
-    real = dict(kernels._LIBS)
-    kernels._LIBS.update({k: LaunchRecorder(v, calls)
-                          for k, v in real.items()})
-    try:
-        prove(config, air, trace, [], spans=spans)
-    finally:
-        kernels._LIBS.update(real)
+    spans = {}
+    _, calls = recorded(torch, kernels, lambda: prove(config, air, trace,
+                                                      [], spans=spans))
     emit({"phase": "spans", "seconds": spans})
     per_proof = launch_bounds(peak, calls)
     emit({"phase": "per_proof", "kernels": per_proof})
-    device_ms, _ = profile_prove(torch, prove, config, air, trace, warm_s)
+    device_ms = profile_prove(torch, kernels, prove, config, air, trace,
+                              warm_s)
     return dict(launches=launches, per_proof=per_proof, device_ms=device_ms,
                 proof=proof, workload=(config, air, trace))
 
@@ -726,13 +977,48 @@ def check_shape(proof, air, params, log_n):
 FAST_PATH = MAIN_PATH + ("keccak256_chain", "keccak_grind")
 
 
+def timer(torch, config, air, trace):
+    """timed(prove_fn, **kw) -> (proof, wall seconds to the device's end)."""
+    def timed(fn, **kw):
+        t0 = time.perf_counter()
+        proof = fn(config, air, trace, [], **kw)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t0
+
+    return timed
+
+
+def warm_turns(timed, prove, fast):
+    """Warm times of both provers in turns, on the same card."""
+    turns = {"prove": [], "fast": []}
+    for name in ("prove", "fast", "fast", "prove", "prove", "fast"):
+        turns[name].append(timed(prove if name == "prove" else fast)[1])
+    return turns
+
+
+def sync_calls(torch, fn):
+    """The synchronizing calls of fn() by message, as
+    torch.cuda.set_sync_debug_mode("warn") reports them."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return collections.Counter(
+        str(w.message).splitlines()[0][:80] for w in caught
+        if "synchroniz" in str(w.message))
+
+
 def phase_fast(torch, np, kernels, peak, full):
     """The main path: the full phase's workload through the device-
     transcript prover (`_prove_device_fs`, what prove_fast runs; on the
     card prove_fast raises rather than fall back). Returns its launches,
     per-proof bounds and profiled device time by kernel."""
-    import warnings
-
     from plonky3_tpu_torch.stark import fast_prover as fp
     from plonky3_tpu_torch.stark.prover import prove
 
@@ -740,12 +1026,7 @@ def phase_fast(torch, np, kernels, peak, full):
     params = config.pcs.fri
     log_n = trace.shape[0].bit_length() - 1
 
-    def timed(fn, **kw):
-        t0 = time.perf_counter()
-        proof = fn(config, air, trace, [], **kw)
-        torch.cuda.synchronize()
-        return proof, time.perf_counter() - t0
-
+    timed = timer(torch, config, air, trace)
     torch.cuda.reset_peak_memory_stats()
     first, cold_s = timed(fp._prove_device_fs)
     kernels.reset_launches()
@@ -770,11 +1051,7 @@ def phase_fast(torch, np, kernels, peak, full):
     if as_plain(first) != as_plain(proof):
         raise AssertionError("two fast proves of the same trace differ")
     check_shape(proof, air, params, log_n)
-    # warm times of both provers in turns, on the same card
-    turns = {"prove": [], "fast": []}
-    for name in ("prove", "fast", "fast", "prove", "prove", "fast"):
-        fn = prove if name == "prove" else fp._prove_device_fs
-        turns[name].append(timed(fn)[1])
+    turns = warm_turns(timed, prove, fp._prove_device_fs)
     n_perms = 8 << log_n
     fast_s = statistics.median(turns["fast"])
     emit({"phase": "fast", "log_n": log_n, "perms": n_perms,
@@ -787,14 +1064,9 @@ def phase_fast(torch, np, kernels, peak, full):
           "prove_median_s": statistics.median(turns["prove"]),
           "equals_prove": True})
     phase_verify(config, air, proof, log_n)
-    spans, calls = {}, []
-    real = dict(kernels._LIBS)
-    kernels._LIBS.update({k: LaunchRecorder(v, calls)
-                          for k, v in real.items()})
-    try:
-        traced = fp._prove_device_fs(config, air, trace, [], spans=spans)
-    finally:
-        kernels._LIBS.update(real)
+    spans = {}
+    traced, calls = recorded(torch, kernels, lambda: fp._prove_device_fs(
+        config, air, trace, [], spans=spans))
     emit({"phase": "fast_spans", "seconds": spans})
     fri = traced.opening_proof
     witnesses = ([w for w in fri.commit_pow_witnesses]
@@ -802,29 +1074,129 @@ def phase_fast(torch, np, kernels, peak, full):
     per_proof = launch_bounds(peak, calls,
                               witnesses + [fri.query_pow_witness])
     emit({"phase": "fast_per_proof", "kernels": per_proof})
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            fp._prove_device_fs(config, air, trace, [])
-            torch.cuda.synchronize()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    syncs = collections.Counter(
-        str(w.message).splitlines()[0][:80] for w in caught
-        if "synchroniz" in str(w.message))
+    syncs = sync_calls(torch, lambda: fp._prove_device_fs(config, air,
+                                                          trace, []))
     emit({"phase": "fast_syncs", "synchronizing_calls": sum(syncs.values()),
           "by_message": dict(syncs)})
-    device_ms, launch_us = profile_prove(torch, fp._prove_device_fs, config,
-                                         air, trace, fast_s)
-    # the chain's profiled time call by call, beside each call's size
-    chains = [a for fn, a in calls if fn == "keccak256_chain"]
+    device_ms = profile_prove(torch, kernels, fp._prove_device_fs, config,
+                              air, trace, fast_s)
+    # the chain's device time call by call, beside each call's size
     emit({"phase": "fast_chain_calls",
-          "launches_profiled": len(launch_us["keccak256_chain"]),
           "calls": [{"n": a[2], "k": a[3], "keccak_f": a[2] // 34 + a[3],
-                     "us": us,
+                     "us": ms * 1e3,
                      "bound_us": chain_bound(peak, a[2], a[3])[0] * 1e3}
-                    for a, us in zip(chains, launch_us["keccak256_chain"])]})
+                    for fn, a, ms in calls if fn == "keccak256_chain"]})
+    return dict(launches=launches, per_proof=per_proof, device_ms=device_ms)
+
+
+# the kernels the Poseidon2 path must launch, and those it must not
+POSEIDON2_PATH = ("ntt_k1", "ntt_k2", "poseidon2_duplex_chain",
+                  "poseidon2_grind")
+KECCAK_KERNELS = ("keccak_sponge", "keccak_compress", "keccak_ladder",
+                  "keccak256_chain", "keccak_grind")
+
+
+def phase_poseidon2(torch, np, kernels, peak):
+    """The benchmark workload under poseidon2_stark_config through the
+    device-transcript prover (`_prove_device_fs`, what prove_fast runs),
+    cold and warm, against prove(); then the port's verifier on its proof.
+    Returns its launches, per-proof bounds and profiled device time by
+    kernel."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.merkle.mmcs import levels_by_compress
+    from plonky3_tpu_torch.stark import fast_prover as fp
+    from plonky3_tpu_torch.stark.prover import prove
+
+    log_n = 17
+    params = FriParameters.new_benchmark_high_arity()
+    config, air, trace = _workload(np, log_n, params, "cuda", "poseidon2")
+
+    timed = timer(torch, config, air, trace)
+    torch.cuda.reset_peak_memory_stats()
+    first, cold_s = timed(fp._prove_device_fs)
+    kernels.reset_launches()
+    pulls = fp.PULLS["count"]
+    proof, warm_s = timed(fp._prove_device_fs)
+    launches = dict(kernels.LAUNCHES)
+    pulls = fp.PULLS["count"] - pulls
+    peak_mem = torch.cuda.max_memory_allocated()
+    missing = [k for k in POSEIDON2_PATH if launches[k] == 0]
+    stray = [k for k in KECCAK_KERNELS if launches[k]]
+    if missing or stray:
+        raise AssertionError(f"poseidon2 fast prove: not launched {missing},"
+                             f" launched {stray}")
+    grinds = 1 + (params.commit_proof_of_work_bits > 0) * len(
+        proof.opening_proof.commit_phase_commits)
+    if launches["poseidon2_grind"] != grinds:
+        raise AssertionError(f"{launches['poseidon2_grind']} grinds, "
+                             f"expected {grinds}")
+    if pulls != 1:
+        raise AssertionError(f"{pulls} device-to-host copies in one proof")
+    ref, prove_cold_s = timed(prove)
+    if as_plain(proof) != as_plain(ref):
+        raise AssertionError("the poseidon2 fast proof differs from "
+                             "prove()'s")
+    if as_plain(first) != as_plain(proof):
+        raise AssertionError("two poseidon2 fast proves differ")
+    check_shape(proof, air, params, log_n)
+    turns = warm_turns(timed, prove, fp._prove_device_fs)
+    n_perms = 8 << log_n
+    fast_s = statistics.median(turns["fast"])
+    emit({"phase": "poseidon2", "log_n": log_n, "perms": n_perms,
+          "cold_prove_s": cold_s, "warm_prove_s": warm_s,
+          "cold_host_transcript_prove_s": prove_cold_s,
+          "perms_per_s": n_perms / fast_s, "peak_mem_bytes": peak_mem,
+          "pulls": pulls, "launches": launches,
+          "warm_fast_s_turns": turns["fast"],
+          "warm_prove_s_turns": turns["prove"], "fast_median_s": fast_s,
+          "prove_median_s": statistics.median(turns["prove"]),
+          "equals_prove": True})
+    phase_verify(config, air, proof, log_n, phase="poseidon2_verify",
+                 probes=("trace_local", "trace_root",
+                         "commit_phase_sibling_digest"))
+    spans = {}
+    traced, calls = recorded(torch, kernels, lambda: fp._prove_device_fs(
+        config, air, trace, [], spans=spans))
+    emit({"phase": "poseidon2_spans", "seconds": spans})
+    fri = traced.opening_proof
+    witnesses = (list(fri.commit_pow_witnesses)
+                 if params.commit_proof_of_work_bits else [])
+    per_proof = launch_bounds(peak, calls,
+                              witnesses + [fri.query_pow_witness])
+    emit({"phase": "poseidon2_per_proof", "kernels": per_proof})
+    syncs = sync_calls(torch, lambda: fp._prove_device_fs(config, air,
+                                                          trace, []))
+    emit({"phase": "poseidon2_syncs",
+          "synchronizing_calls": sum(syncs.values()),
+          "by_message": dict(syncs)})
+    device_ms = profile_prove(torch, kernels, fp._prove_device_fs, config,
+                              air, trace, fast_s, phase="poseidon2_profile")
+    chains = [(a[2], ms) for fn, a, ms in calls
+              if fn == "poseidon2_duplex_chain"]
+    longest = max(n for n, _ in chains)
+    if longest != P2_ALPHA2_WORDS:
+        raise AssertionError(f"the longest duplex absorb took {longest} "
+                             f"words, the kernels phase {P2_ALPHA2_WORDS}")
+    emit({"phase": "poseidon2_chain_calls", "longest_words": longest,
+          "calls": [{"n": n, "blocks": max(1, -(-n // 16)), "us": ms * 1e3,
+                     "bound_us": p2_chain_bound(peak, n)[0] * 1e3}
+                    for n, ms in chains],
+          "grind_us": [ms * 1e3 for fn, _, ms in calls
+                       if fn == "poseidon2_grind"]})
+    # the plain-torch hashing of the trace tree alone, once each: the leaf
+    # sponge over the LDE's shape and the compression levels above it
+    mmcs = config.pcs.mmcs
+    rows = _rand_words(torch, np.random.default_rng(7),
+                       (2 << log_n, air.width), F.P).to(torch.int64)
+    leaves, sponge_ms = once_ms(
+        torch, lambda: mmcs.sponge.hash_rows_device([rows]))
+    levels, ladder_ms = once_ms(
+        torch, lambda: levels_by_compress(mmcs.compressor, leaves))
+    emit({"phase": "poseidon2_hashing", "rows": rows.shape[0],
+          "width": rows.shape[1], "sponge_ms": sponge_ms,
+          "sponge_permutations": -(-air.width // 16),
+          "ladder_ms": ladder_ms, "compression_levels": len(levels) - 1})
     return dict(launches=launches, per_proof=per_proof, device_ms=device_ms)
 
 
@@ -854,6 +1226,11 @@ def _bump_sibling_digest(proof, E):
     sibs[0] = ((sibs[0][0] + 1) & 0xFFFFFFFF,) + tuple(sibs[0][1:])
 
 
+def _bump_trace_root(proof, E):
+    root = proof.commitments.trace
+    proof.commitments.trace = ((root[0] + 1) % E.base.P,) + tuple(root[1:])
+
+
 def _with_extra_constraint(air):
     """`air` with one more constraint: its first trace column is zero."""
     class Extra(type(air)):
@@ -866,23 +1243,28 @@ def _with_extra_constraint(air):
     return extra
 
 
-def phase_verify(config, air, proof, log_n):
-    """The port's verifier (host work) on the main path's full-size
-    proof, then on three probes, each of which must raise one of the
-    classes named for it; any other outcome fails the run."""
+def phase_verify(config, air, proof, log_n, phase="verify",
+                 probes=("trace_local", "commit_phase_sibling_digest",
+                         "other_air")):
+    """The port's verifier (host work) on a full-size proof, then on the
+    named probes, each of which must raise one of the classes named for
+    it; any other outcome fails the run."""
     from plonky3_tpu_torch.stark.verifier import (
         InvalidOpeningArgument, OodEvaluationMismatch, verify)
 
+    known = {
+        "trace_local": (_bump_trace_value,
+                        (OodEvaluationMismatch, InvalidOpeningArgument)),
+        "trace_root": (_bump_trace_root, (InvalidOpeningArgument,)),
+        "commit_phase_sibling_digest": (_bump_sibling_digest,
+                                        (InvalidOpeningArgument,)),
+        "other_air": (None, (OodEvaluationMismatch,))}
     t0 = time.perf_counter()
     verify(config, air, proof, [])  # raises on a rejection
     verify_s = time.perf_counter() - t0
     tamper = {}
-    for name, change, expected in (
-            ("trace_local", _bump_trace_value,
-             (OodEvaluationMismatch, InvalidOpeningArgument)),
-            ("commit_phase_sibling_digest", _bump_sibling_digest,
-             (InvalidOpeningArgument,)),
-            ("other_air", None, (OodEvaluationMismatch,))):
+    for name in probes:
+        change, expected = known[name]
         bad, probe_air = proof, air
         if change is None:
             probe_air = _with_extra_constraint(air)
@@ -897,56 +1279,62 @@ def phase_verify(config, air, proof, log_n):
                             "s": time.perf_counter() - t0}
         else:
             raise AssertionError(f"verify accepted the probe {name}")
-    emit({"phase": "verify", "log_n": log_n, "accepted": True,
+    emit({"phase": phase, "log_n": log_n, "accepted": True,
           "verify_s": verify_s, "tamper": tamper, "host_cpu": host_cpu(),
           "host_cpus": os.cpu_count()})
 
 
-def profile_prove(torch, prove, config, air, trace, warm_s):
+def profile_prove(torch, kernels, prove, config, air, trace, warm_s,
+                  phase="profile"):
     """One prove under torch.profiler: device time by kernel, and the
     device's busy share of the unprofiled warm prove's wall time.
-    Returns the port's kernels' device ms by record name, and the device
-    µs of each launch of the transcript kernels in launch order."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    Returns the port's kernels' device ms by record name.
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    A profile can miss launches (see `_profile`): one that recorded five
+    of a prove's six K2 launches gave a per-proof device time below the
+    per-proof bound. So each of the port's kernels must be recorded as
+    many times as the prove launched it (`kernels.LAUNCHES`). One that
+    is short has no profiled time (`unrecorded` in the line); its
+    per-proof time comes from CUDA events (`recorded`). The prove is
+    profiled once: a second pass, seconds long at 10^5 launches, came out
+    short as often as the first."""
+    from torch.autograd import DeviceType
+
+    def run():
+        kernels.reset_launches()
         prove(config, air, trace, [])
-        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    prof = _profile(torch, run)
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA), reverse=True)
-    busy_s = sum(r[0] for r in rows) / 1e6
-    ours = ("ntt_kernel", "sponge_rows_kernel", "compress_kernel",
-            "merkle_ladder_kernel", "keccak256_chain_kernel",
-            "keccak_grind_kernel")
     device_ms, calls = collections.Counter(), collections.Counter()
     for us, k, c in rows:
         for name, tags in PROFILE_NAMES.items():
             if all(t in k for t in tags):
                 device_ms[name] += us / 1e3
                 calls[name] += c
-    launch_us = {name: [] for name in ("keccak256_chain", "keccak_grind")}
-    for ev in sorted((ev for ev in prof.events()
-                      if ev.device_type == DeviceType.CUDA),
-                     key=lambda ev: ev.time_range.start):
-        for name in launch_us:
-            if all(t in ev.name for t in PROFILE_NAMES[name]):
-                launch_us[name].append(ev.time_range.end
-                                       - ev.time_range.start)
+    short = {k: [calls[k], n] for k, n in launched.items()
+             if calls[k] != n}
+    for k in short:
+        device_ms.pop(k, None)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    ours = tuple(tags[0] for tags in PROFILE_NAMES.values())
     compressor = ("keccak_ladder", "keccak_compress")
-    emit({"phase": "profile", "device_busy_s": busy_s,
+    emit({"phase": phase, "device_busy_s": busy_s,
           "warm_prove_s": warm_s, "device_idle_share": 1 - busy_s / warm_s,
           "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": c}
                   for us, k, c in rows[:12]],
           "port_kernels": [{"kernel": k[:70], "ms": us / 1e3, "calls": c}
                            for us, k, c in rows
                            if any(o in k for o in ours)],
-          "compressor_ms": sum(device_ms[k] for k in compressor),
+          "launches": launched, "unrecorded": short,
+          "compressor_ms": sum(device_ms.get(k, 0) for k in compressor),
           "compressor_launches": sum(calls[k] for k in compressor),
           "device_ms": dict(device_ms)})
-    return dict(device_ms), launch_us
+    return dict(device_ms)
 
 
 # profiler kernel names of each record: every tag must appear
@@ -956,7 +1344,9 @@ PROFILE_NAMES = {"ntt_k1": ("ntt_kernel<", "true>"),
                  "keccak_compress": ("compress_kernel",),
                  "keccak_ladder": ("merkle_ladder_kernel",),
                  "keccak256_chain": ("keccak256_chain_kernel",),
-                 "keccak_grind": ("keccak_grind_kernel",)}
+                 "keccak_grind": ("keccak_grind_kernel",),
+                 "poseidon2_duplex_chain": ("duplex_chain_kernel",),
+                 "poseidon2_grind": ("duplex_grind_kernel",)}
 
 
 def main(argv=None) -> int:
@@ -970,24 +1360,51 @@ def main(argv=None) -> int:
         return 1
     from plonky3_tpu_torch import kernels
 
-    peak = phase_card(torch, kernels)
-    records = phase_kernels(torch, np, peak)
-    mixed = phase_mixed(torch, np, kernels)
-    phase_small(torch, np)
-    full = phase_full(torch, np, kernels, peak)
-    fast = phase_fast(torch, np, kernels, peak, full)
-    # launches, proof_ms and proof_bound_ms: the main path (the fast
-    # prover); *_prove: the host-transcript prove()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    peak = timed("card", phase_card, torch, kernels)
+    records = timed("kernels", phase_kernels, torch, np, peak)
+    mixed = timed("mixed", phase_mixed, torch, np, kernels)
+    timed("small", phase_small, torch, np)
+    full = timed("full", phase_full, torch, np, kernels, peak)
+    fast = timed("fast", phase_fast, torch, np, kernels, peak, full)
+    p2 = timed("poseidon2", phase_poseidon2, torch, np, kernels, peak)
+    # launches, proof_* : the main path (the fast prover) of the kernel's
+    # config, keccak or (the duplex transcript's kernels) Poseidon2;
+    # *_prove: the keccak config's prove(); *_poseidon2: the NTT kernels
+    # on the Poseidon2 path. proof_ms: the kernel's launches of one prove
+    # timed by CUDA events; proof_profiled_ms: by torch.profiler, where it
+    # recorded every launch. Every per-proof share goes through share().
     for name, rec in records.items():
-        rec["launches"] = fast["launches"][name]
-        rec["launches_prove"] = full["launches"][name]
-        rec["launches_mixed_commit"] = mixed[name]
-        for key, got in (("", fast), ("_prove", full)):
-            if name in got["per_proof"]:
-                rec[f"proof_bound_ms{key}"] = got["per_proof"][name][
-                    "bound_ms"]
-            if name in got["device_ms"]:
-                rec[f"proof_ms{key}"] = got["device_ms"][name]
+        main = p2 if name.startswith("poseidon2") else fast
+        paths = [("", main)]
+        if main is fast:
+            paths.append(("_prove", full))
+            rec["launches_prove"] = full["launches"][name]
+            rec["launches_mixed_commit"] = mixed[name]
+        if name in POSEIDON2_PATH and main is fast:
+            paths.append(("_poseidon2", p2))
+            rec["launches_poseidon2"] = p2["launches"][name]
+        rec["launches"] = main["launches"][name]
+        for key, got in paths:
+            if name not in got["per_proof"]:
+                continue
+            bound = got["per_proof"][name]["bound_ms"]
+            rec[f"proof_bound_ms{key}"] = bound
+            for what, ms in (("", got["per_proof"][name]["ms"]),
+                             ("_profiled", got["device_ms"].get(name))):
+                if ms is not None:
+                    rec[f"proof{what}_ms{key}"] = ms
+                    rec[f"proof{what}_share{key}"] = share(
+                        f"{name}{key} per proof{what}", bound, ms)
+    emit({"phase": "profile_checks", "short": PROFILE_SHORT})
+    emit({"phase": "phase_seconds", "seconds": seconds})
     emit({"kernels": [records[k] for k in sorted(records)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

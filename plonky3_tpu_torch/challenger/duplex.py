@@ -1,0 +1,121 @@
+"""DuplexChallenger: the Poseidon2 duplex-sponge Fiat-Shamir transcript on
+the host.
+
+Port of `plonky3_tpu/challenger/duplex.py` (challenger/src/
+duplex_challenger.rs:33), the transcript of the Poseidon2 config
+(DuplexChallenger<F, Perm24, 24, 16>), on standard-form Python ints:
+
+  observe:      clear the output buffer, queue the input; duplex when RATE
+                inputs are queued
+  duplexing:    overwrite state[0..k] with the k queued inputs; when k > 0
+                zero the other rate lanes and add the length tag k to
+                state[RATE] (:92-117); permute; the output buffer is
+                state[..RATE], popped from the end
+  sample:       duplex if inputs are queued or the outputs are spent; pop
+  sample_bits:  the low `bits` bits of a sample (:278-284)
+  grind(bits):  the smallest witness w with sample_bits(bits) == 0 after
+                observe(w) (grinding_challenger.rs:33), searched by
+                `poseidon2_grind` on the challenger's device
+
+The permutation is the numpy `Poseidon2.permute_np`. The prover's
+`prove()` and the verifier use this class; the fast prover uses
+`device_duplex.DeviceDuplexChallenger`, which samples the same values.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..hashes.poseidon2_cuda import RATE, WIDTH, poseidon2_grind
+
+
+class DuplexChallenger:
+    def __init__(self, perm, device="cpu"):
+        if perm.width != WIDTH:
+            raise ValueError(f"the duplex transcript takes a width-{WIDTH} "
+                             f"permutation, not {perm.width}")
+        self.perm = perm
+        self.device = torch.device(device)  # where `grind` searches
+        self.state = [0] * WIDTH
+        self.input_buffer: list[int] = []
+        self.output_buffer: list[int] = []
+
+    def _duplexing(self):
+        k = len(self.input_buffer)
+        self.state[:k] = self.input_buffer
+        self.input_buffer = []
+        if k:
+            self.state[k:RATE] = [0] * (RATE - k)
+            self.state[RATE] = (self.state[RATE] + k) % self.perm.F.P
+        out = self.perm.permute_np(np.asarray(self.state, dtype=np.int64))
+        self.state = [int(x) for x in out]
+        self.output_buffer = self.state[:RATE]
+
+    # -- observation ------------------------------------------------------
+    def observe(self, value: int):
+        self.output_buffer = []
+        self.input_buffer.append(int(value) % self.perm.F.P)
+        if len(self.input_buffer) == RATE:
+            self._duplexing()
+
+    def observe_many(self, values):
+        for v in values:
+            self.observe(int(v))
+
+    def observe_ext(self, ext_tuple):
+        self.observe_many(ext_tuple)
+
+    def observe_base_array(self, values_std: np.ndarray):
+        """Standard-form elements in row-major order."""
+        self.observe_many(np.asarray(values_std).reshape(-1).tolist())
+
+    def observe_digest(self, values):
+        """A field digest, or a Merkle cap (a sequence of digests, observed
+        in order; duplex_challenger.rs:221)."""
+        if values and isinstance(values[0], (tuple, list)):
+            for d in values:
+                self.observe_many(d)
+        else:
+            self.observe_many(values)
+
+    # -- sampling -----------------------------------------------------------
+    def sample(self) -> int:
+        if self.input_buffer or not self.output_buffer:
+            self._duplexing()
+        return self.output_buffer.pop()
+
+    def sample_ext(self, D: int) -> tuple:
+        return tuple(self.sample() for _ in range(D))
+
+    def sample_bits(self, bits: int) -> int:
+        if (1 << bits) >= self.perm.F.P:
+            raise ValueError(f"{bits} bits exceed the field")
+        return self.sample() & ((1 << bits) - 1)
+
+    # -- proof of work --------------------------------------------------------
+    def check_witness(self, bits: int, witness: int) -> bool:
+        if bits == 0:
+            return True
+        self.observe(witness)
+        return self.sample_bits(bits) == 0
+
+    def grind(self, bits: int) -> int:
+        """The smallest witness; grind(0) returns 0 and touches nothing.
+        observe(w) queues w after the k queued inputs, and sample_bits then
+        duplexes k + 1 inputs: the search permutes that staged state with
+        every candidate in lane k."""
+        if bits == 0:
+            return 0
+        F = self.perm.F
+        k = len(self.input_buffer)
+        base = list(self.state)
+        base[:k] = self.input_buffer
+        base[k + 1:RATE] = [0] * (RATE - k - 1)
+        base[RATE] = (base[RATE] + k + 1) % F.P
+        base_m = torch.from_numpy(F.to_monty_np(np.asarray(
+            base, dtype=np.uint64)).astype(np.int32)).to(self.device)
+        w = int(poseidon2_grind(self.perm, base_m, k, bits)[0])
+        if w < 0 or not self.check_witness(bits, w):
+            raise RuntimeError("grind witness failed its replay")
+        return w

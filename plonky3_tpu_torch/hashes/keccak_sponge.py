@@ -65,6 +65,8 @@ class KeccakFieldSponge:
 
     F: object  # Monty31, for the openings' Montgomery -> standard form
 
+    digest_is_field = False
+
     def hash_rows_words(self, mats):
         """Hash the rows of same-height matrices, concatenated row-wise:
         list of (h, ...) int64 tensors -> (h, 8) int32 digest words, the

@@ -1,11 +1,20 @@
-"""Poseidon2 over KoalaBear, width 16, on int64 tensors.
+"""Poseidon2 over KoalaBear, widths 16 and 24, on int64 tensors and numpy.
 
 Port of the array paths of `plonky3_tpu/hashes/poseidon2.py`
 (poseidon2/src/lib.rs:139: external initial rounds, internal rounds,
 external terminal rounds; external.rs:113 the MDS-light layer circ(2M4,
 M4, ...) with M4 = [[2,3,1,1],[1,2,3,1],[1,1,2,3],[3,1,1,2]];
-monty-31/src/poseidon2.rs:77-90 the internal layer J + Diag(V)). States
-are (..., 16) int64 tensors in Montgomery form. `mds_light` is the same
+monty-31/src/poseidon2.rs:77-90 the internal layer J + Diag(V)).
+
+`permute` takes (..., width) int64 tensors in Montgomery form (the Merkle
+sponge and compressor, the kernels' plain versions); `permute_np` takes
+numpy arrays in standard form (the host transcript and the verifier, the
+port's counterpart of `permute_host` and `native/poseidon2.c`). Both run
+`_permute_std`, one exact computation in standard form: Montgomery form
+is a field isomorphism, so converting at the ends gives the reference's
+bits, and a standard-form product needs one `%` where a Montgomery one
+needs two. The AIR reads the Montgomery-form pieces (`consts`,
+`_mds_light_arr`, `sbox`, `internal_layer`); `mds_light` is the same
 layer over any values through an ops protocol (add, double): the AIR's
 `eval` runs it on its symbolic values.
 """
@@ -17,18 +26,23 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-# Internal diagonal V as (numerator, log2 denominator): V_i = num / 2^den
+# Internal diagonals V as (numerator, log2 denominator): V_i = num / 2^den
 # mod P (koala-bear/src/poseidon2.rs:10-15). V[0] = -2.
-DIAGONAL_KOALABEAR_16 = (
-    (-2, 0), (1, 0), (2, 0), (1, 1), (3, 0), (4, 0), (-1, 1), (-3, 0),
-    (-4, 0), (1, 8), (1, 3), (1, 24), (-1, 8), (-1, 3), (-1, 4), (-1, 24),
-)
+DIAGONALS_KOALABEAR = {
+    16: ((-2, 0), (1, 0), (2, 0), (1, 1), (3, 0), (4, 0), (-1, 1), (-3, 0),
+         (-4, 0), (1, 8), (1, 3), (1, 24), (-1, 8), (-1, 3), (-1, 4),
+         (-1, 24)),
+    24: ((-2, 0), (1, 0), (2, 0), (1, 1), (3, 0), (4, 0), (-1, 1), (-3, 0),
+         (-4, 0), (1, 8), (1, 2), (1, 3), (1, 4), (1, 5), (1, 6), (1, 24),
+         (-1, 8), (-1, 3), (-1, 4), (-1, 5), (-1, 6), (-1, 7), (-1, 9),
+         (-1, 24)),
+}
 S_BOX_DEGREE = {"KoalaBear": 3}
 
 
-def diag_values_std(F) -> list:
+def diag_values_std(F, width: int) -> list:
     return [(num * pow(pow(2, den, F.P), F.P - 2, F.P)) % F.P
-            for num, den in DIAGONAL_KOALABEAR_16]
+            for num, den in DIAGONALS_KOALABEAR[width]]
 
 
 def _apply_mat4(ops, x):
@@ -61,37 +75,95 @@ def mds_light(ops, state):
     return [ops.add(st[i], sums[i % 4]) for i in range(w)]
 
 
+def _mds_light_std(x, P):
+    """The external layer in place on (..., width) standard-form int64
+    values in [0, P) (a tensor or a numpy array): M4 on each block of
+    four, then each value plus the sum of its position across the blocks.
+    Reduced once at the end: every sum stays below 49·P < 2^37."""
+    x0, x1, x2, x3 = (x[..., k::4] for k in range(4))
+    t01 = x0 + x1
+    t23 = x2 + x3
+    t0123 = t01 + t23
+    t01123 = t0123 + x1
+    t01233 = t0123 + x3
+    ys = (t01123 + t01, t01123 + 2 * x2, t01233 + t23, t01233 + 2 * x0)
+    for k, y in enumerate(ys):
+        x[..., k::4] = (y + y.sum(-1)[..., None]) % P
+
+
+def _sbox3_std(x, P):
+    return x * x % P * x % P
+
+
+def _permute_std(x, c, P):
+    """The permutation of (..., width) standard-form int64 values in
+    [0, P), updating the buffer `x` in place where it can; `c` holds the
+    standard-form tables (`Poseidon2.std_tables`) as the same kind of
+    array. Returns the permuted states."""
+    _mds_light_std(x, P)
+    for rc in c["rc_ei"]:
+        x = _sbox3_std((x + rc) % P, P)
+        _mds_light_std(x, P)
+    for rc in c["rc_int"]:
+        x[..., 0] = _sbox3_std((x[..., 0] + rc) % P, P)
+        total = x.sum(-1)  # < 24·P
+        x = (x * c["diag"] + total[..., None]) % P
+    for rc in c["rc_ef"]:
+        x = _sbox3_std((x + rc) % P, P)
+        _mds_light_std(x, P)
+    return x
+
+
 @dataclass(frozen=True)
 class Poseidon2:
     F: object
     width: int
     d: int
-    rc_external_initial: tuple  # (4, 16) standard ints
+    rc_external_initial: tuple  # (4, width) standard ints
     rc_external_final: tuple
-    rc_internal: tuple  # (20,) standard ints
+    rc_internal: tuple  # (partial rounds,) standard ints
 
     def __post_init__(self):
-        object.__setattr__(self, "diag_std", diag_values_std(self.F))
+        if self.d != 3:
+            raise NotImplementedError("only the degree-3 s-box is ported")
+        object.__setattr__(self, "diag_std", diag_values_std(self.F,
+                                                             self.width))
+        # the standard-form tables as int64 numpy arrays
+        object.__setattr__(self, "tables_np", {
+            k: np.asarray(v, dtype=np.int64) for k, v in (
+                ("rc_ei", self.rc_external_initial),
+                ("rc_int", self.rc_internal),
+                ("rc_ef", self.rc_external_final),
+                ("diag", self.diag_std))})
+        object.__setattr__(self, "_on_device", {})
+
+    def on_device(self, name, device, make):
+        """make(device), made once per (name, device) and kept: the
+        tables a device path reads on every call."""
+        key = (name, torch.device(device))
+        hit = self._on_device.get(key)
+        if hit is None:
+            hit = self._on_device[key] = make(key[1])
+        return hit
 
     def _device_consts(self):
         """Round constants and diagonal as Montgomery uint32 host arrays."""
-        F = self.F
-
-        def to_m(xs):
-            return F.to_monty_np(np.asarray(xs, dtype=np.uint32))
-
-        return dict(rc_ei=to_m(self.rc_external_initial),
-                    rc_ef=to_m(self.rc_external_final),
-                    rc_int=to_m(self.rc_internal),
-                    diag=to_m(self.diag_std))
+        return {k: self.F.to_monty_np(v.astype(np.uint32))
+                for k, v in self.tables_np.items()}
 
     def consts(self, device):
         """`_device_consts` as int64 tensors on `device`."""
         return {k: torch.from_numpy(v.astype(np.int64)).to(device)
                 for k, v in self._device_consts().items()}
 
+    def std_tables(self, device):
+        """The standard-form tables as int64 tensors on `device`."""
+        return self.on_device("std", device, lambda dev: {
+            k: torch.from_numpy(v).to(dev)
+            for k, v in self.tables_np.items()})
+
     def _mds_light_arr(self, x):
-        """External linear layer on (..., 16) tensors."""
+        """External linear layer on (..., width) Montgomery tensors."""
         F, w = self.F, self.width
         b = x.reshape(x.shape[:-1] + (w // 4, 4))
         x0, x1, x2, x3 = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
@@ -115,31 +187,31 @@ class Poseidon2:
         return F.add(F.sum(s, dim=-1)[..., None], F.mul(s, diag))
 
     def permute(self, states):
-        """Batched permutation of (..., 16) Montgomery int64 states."""
+        """Batched permutation of (..., width) Montgomery int64 tensors."""
         F = self.F
-        c = self.consts(states.device)
-        x = self._mds_light_arr(states)
-        for rc in c["rc_ei"]:
-            x = self._mds_light_arr(self.sbox(F.add(x, rc)))
-        for rc in c["rc_int"]:
-            s0 = self.sbox(F.add(x[..., 0], rc))
-            x = self.internal_layer(torch.cat([s0[..., None], x[..., 1:]],
-                                              dim=-1), c["diag"])
-        for rc in c["rc_ef"]:
-            x = self._mds_light_arr(self.sbox(F.add(x, rc)))
-        return x
+        x = _permute_std(F.from_monty_tensor(states),
+                         self.std_tables(states.device), F.P)
+        return F.to_monty_tensor(x)
+
+    def permute_np(self, states):
+        """Batched permutation of (..., width) standard-form values (any
+        integer numpy array) -> int64 standard form."""
+        x = np.array(states, dtype=np.int64)
+        return _permute_std(x, self.tables_np, self.F.P)
 
 
-def default_poseidon2(F, width: int = 16) -> Poseidon2:
-    """The default KoalaBear width-16 instance (koala-bear/src/
-    poseidon2.rs:190)."""
+def default_poseidon2(F, width: int) -> Poseidon2:
+    """The default KoalaBear instances of widths 16 and 24
+    (koala-bear/src/poseidon2.rs:190)."""
     from .constants import poseidon2_constants as consts
 
-    if F.name != "KoalaBear" or width != 16:
-        raise NotImplementedError("only KoalaBear width 16 is ported")
+    if F.name != "KoalaBear" or width not in DIAGONALS_KOALABEAR:
+        raise NotImplementedError("only KoalaBear widths 16 and 24 are "
+                                  "ported")
+    prefix = f"KOALABEAR_POSEIDON2_RC_{width}"
     return Poseidon2(
-        F=F, width=16, d=S_BOX_DEGREE[F.name],
-        rc_external_initial=consts.KOALABEAR_POSEIDON2_RC_16_EXTERNAL_INITIAL,
-        rc_external_final=consts.KOALABEAR_POSEIDON2_RC_16_EXTERNAL_FINAL,
-        rc_internal=consts.KOALABEAR_POSEIDON2_RC_16_INTERNAL,
+        F=F, width=width, d=S_BOX_DEGREE[F.name],
+        rc_external_initial=getattr(consts, f"{prefix}_EXTERNAL_INITIAL"),
+        rc_external_final=getattr(consts, f"{prefix}_EXTERNAL_FINAL"),
+        rc_internal=getattr(consts, f"{prefix}_INTERNAL"),
     )

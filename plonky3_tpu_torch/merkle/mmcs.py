@@ -12,7 +12,8 @@ call (`ladder_device`; for keccak, the Merkle ladder kernel in two launches
 for a 2^18-leaf tree), so without injection the whole tree is one call and
 its layers are views into one buffer. The injection level itself is one
 `compress_device` call. A compressor without a ladder kernel of its own
-implements `ladder_device` with `levels_by_compress`, one call per level.
+(the Poseidon2 `TruncatedPermutation`) climbs by `levels_by_compress`, one
+`compress_device` call per level.
 
 Openings are pruned multiproofs (merkle-tree/src/pruning.rs): a sibling
 digest is shipped only when no queried leaf lies under it, in the
@@ -21,12 +22,16 @@ within a group missing positions ascending). `PullBatcher` gathers the
 rows and digests of several trees and copies them to the host in one
 transfer.
 
+Digests are the sponge's: raw keccak words, or field elements
+(`digest_is_field`, the Poseidon2 sponge), which are Montgomery words on
+the device and standard-form ints in commitments and proofs.
+
 Verification of a pruned opening (mmcs/batch.rs verify_multi_batch) runs
 on the host with the compressor's exact numpy hashes, batched over the
 queries a level at a time. Opened rows arrive in standard form and are
-hashed as their Montgomery words, as the leaves were committed. Digests
-are raw keccak words, compared as they stand. The unpruned single-path
-verifiers (verify_batch, verify_batch_many) come with their first caller.
+hashed as their Montgomery words, as the leaves were committed; field
+digests likewise. The unpruned single-path verifiers (verify_batch,
+verify_batch_many) come with their first caller.
 """
 
 from __future__ import annotations
@@ -79,7 +84,9 @@ def _build_layers(mmcs, mats):
     layers, cur = [], mmcs.sponge.hash_rows_words(take(h))
     # the ladder stops at each shorter height, then at the root
     for top in sorted((set(heights) | {1}) - {h}, reverse=True) or [1]:
-        levels = mmcs.compressor.ladder_device(cur, top)
+        ladder = getattr(mmcs.compressor, "ladder_device", None)
+        levels = (ladder(cur, top) if ladder else
+                  levels_by_compress(mmcs.compressor, cur, top))
         layers += levels[1:] if layers else levels
         inject = take(top) if top < h else []
         if inject:
@@ -152,6 +159,20 @@ class MerkleTreeMmcs:
     def F(self):
         return self.sponge.F
 
+    @property
+    def digest_is_field(self) -> bool:
+        return self.sponge.digest_is_field
+
+    def digests_std(self, words):
+        """Device digest words (numpy) -> their wire values: field digests
+        leave Montgomery form, keccak words stay as they are."""
+        return self.F.from_monty_np(words) if self.digest_is_field else words
+
+    def _digests_m(self, wire):
+        """Wire digests -> the words the compressor hashes."""
+        d = np.asarray(wire, dtype=np.uint32)
+        return self.F.to_monty_np(d) if self.digest_is_field else d
+
     def commit(self, mats) -> MerkleProverData:
         """Commit to (h, w) int64 tensors whose heights are powers of two
         (rows already in their final order)."""
@@ -159,7 +180,8 @@ class MerkleTreeMmcs:
         for m in mats:
             log2_strict(m.shape[0])
         layers = _build_layers(self, mats)
-        root_std = tuple(int(x) for x in layers[-1][0].cpu().tolist())
+        root_std = tuple(int(x) for x in self.digests_std(
+            layers[-1][0].cpu().numpy()))
         log_max = log2_strict(max(m.shape[0] for m in mats))
         eff_cap = self._eff_cap(log_max)
         if eff_cap == 0:
@@ -169,7 +191,8 @@ class MerkleTreeMmcs:
                 raise ValueError("a matrix shorter than the Merkle cap "
                                  "layer cannot be opened")
             cap_std = tuple(tuple(int(x) for x in row)
-                            for row in layers[log_max - eff_cap].cpu().tolist())
+                            for row in self.digests_std(
+                                layers[log_max - eff_cap].cpu().numpy()))
         return MerkleProverData(matrices=mats, layers=layers,
                                 root_std=root_std, cap_std=cap_std)
 
@@ -227,7 +250,7 @@ class MerkleTreeMmcs:
                    for q in range(Q)]
         digests = {}
         for lvl, nodes in plan["by_level"].items():
-            for node, d in zip(nodes, lvl_digs[lvl].tolist()):
+            for node, d in zip(nodes, self.digests_std(lvl_digs[lvl])):
                 digests[(lvl, node)] = tuple(int(x) for x in d)
         return rows_pq, [digests[key] for key in plan["want"]]
 
@@ -294,8 +317,7 @@ class MerkleTreeMmcs:
                     if n & 1:
                         if n ^ 1 in node_set:
                             continue  # paired by its even sibling
-                        left.append(np.asarray(next(sibs),
-                                               dtype=np.uint32))
+                        left.append(self._digests_m(next(sibs)))
                         right.append(digests[pos[n]])
                         consumed += 1
                     else:
@@ -303,8 +325,7 @@ class MerkleTreeMmcs:
                         if n ^ 1 in node_set:
                             right.append(digests[pos[n ^ 1]])
                         else:
-                            right.append(np.asarray(next(sibs),
-                                                    dtype=np.uint32))
+                            right.append(self._digests_m(next(sibs)))
                             consumed += 1
             except StopIteration:
                 return False
@@ -320,6 +341,7 @@ class MerkleTreeMmcs:
                 digests = self.compressor.compress_np(digests, tips)
         if consumed != len(sibling_hashes):
             return False
+        digests = self.digests_std(digests)
         if self._eff_cap(log_max) == 0:
             want = np.array(root_std, dtype=np.uint32)
             return bool((digests[0] == want).all())

@@ -1,5 +1,6 @@
-"""StarkConfig (uni-stark/src/config.rs:24,49) and the keccak benchmark
-config, ported from `plonky3_tpu/stark/config.py`."""
+"""StarkConfig (uni-stark/src/config.rs:24,49) and the two benchmark
+configs of the reference (examples/src/types.rs:19-62), ported from
+`plonky3_tpu/stark/config.py`."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ from .. import default_device
 from ..fri.config import FriParameters
 from ..fri.two_adic_pcs import TwoAdicFriPcs
 from ..hashes.keccak_sponge import KeccakCompressor, KeccakFieldSponge
+from ..hashes.poseidon2 import default_poseidon2
+from ..hashes.sponge import PaddingFreeSponge, TruncatedPermutation
 from ..merkle.extension_mmcs import ExtensionMmcs
 from ..merkle.mmcs import MerkleTreeMmcs
 
@@ -17,6 +20,10 @@ from ..merkle.mmcs import MerkleTreeMmcs
 class StarkConfig:
     pcs: TwoAdicFriPcs
     device: object  # torch.device the config proves on
+    # the Fiat-Shamir transcript: "duplex" (DuplexChallenger over
+    # Poseidon2-24, field digests) or "keccak" (SerializingChallenger32
+    # over keccak-256, word digests)
+    challenger_kind: str = "duplex"
 
     @property
     def F(self):
@@ -27,9 +34,36 @@ class StarkConfig:
         return self.pcs.E
 
     def initialise_challenger(self):
-        from ..challenger.serializing import SerializingChallenger32
+        """The host transcript; a duplex grind searches on the config's
+        device."""
+        if self.challenger_kind == "keccak":
+            from ..challenger.serializing import SerializingChallenger32
 
-        return SerializingChallenger32(self.F)
+            return SerializingChallenger32(self.F)
+        from ..challenger.duplex import DuplexChallenger
+
+        return DuplexChallenger(default_poseidon2(self.F, 24),
+                                device=self.device)
+
+
+def _config(F, E, fri_params, mmcs, device, challenger_kind):
+    pcs = TwoAdicFriPcs(F=F, E=E, fri=fri_params, mmcs=mmcs,
+                        fri_mmcs=ExtensionMmcs(inner=mmcs, D=E.D))
+    return StarkConfig(pcs=pcs, device=default_device(device),
+                       challenger_kind=challenger_kind)
+
+
+def poseidon2_stark_config(F, E, fri_params: FriParameters,
+                           cap_height: int = 0, device=None) -> StarkConfig:
+    """The Poseidon2 Merkle and transcript config of the reference
+    benchmarks (examples/src/types.rs:44-62: sponge 24/16/8, compression
+    of width 16, DuplexChallenger 24/16; field digests), on `device`
+    (default cuda)."""
+    mmcs = MerkleTreeMmcs(
+        sponge=PaddingFreeSponge(default_poseidon2(F, 24), rate=16, out=8),
+        compressor=TruncatedPermutation(default_poseidon2(F, 16), chunk=8),
+        cap_height=cap_height)
+    return _config(F, E, fri_params, mmcs, device, "duplex")
 
 
 def keccak_stark_config(F, E, fri_params: FriParameters,
@@ -38,10 +72,7 @@ def keccak_stark_config(F, E, fri_params: FriParameters,
     benchmarks (examples/src/types.rs:19-42: keccak sponge 25/17/4 over
     u64 lanes, SerializingChallenger32 over Keccak256), on `device`
     (default cuda)."""
-    dev = default_device(device)
     mmcs = MerkleTreeMmcs(sponge=KeccakFieldSponge(F),
                           compressor=KeccakCompressor(),
                           cap_height=cap_height)
-    pcs = TwoAdicFriPcs(F=F, E=E, fri=fri_params, mmcs=mmcs,
-                        fri_mmcs=ExtensionMmcs(inner=mmcs, D=E.D))
-    return StarkConfig(pcs=pcs, device=dev)
+    return _config(F, E, fri_params, mmcs, device, "keccak")

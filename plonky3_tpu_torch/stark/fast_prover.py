@@ -1,17 +1,20 @@
 """uni-stark prover with the Fiat-Shamir transcript on the device.
 
 Port of `plonky3_tpu/stark/fast_prover.py`. It gives the same Proof as
-`prover.prove`, bit for bit, but every challenge is sampled by
-`DeviceSerializingChallenger32` on the device of the trace and feeds the
-next stage there, and the host copies the results once, at the end:
+`prover.prove`, bit for bit, but every challenge is sampled by the
+config's device transcript on the device of the trace and feeds the next
+stage there, and the host copies the results once, at the end. The
+transcript is `DeviceSerializingChallenger32` (keccak config, word
+digests) or `DeviceDuplexChallenger` (Poseidon2 config, field digests):
 
   _device_body_p1: trace commit -> alpha -> quotient eval and commit ->
     zeta -> the opened values (ys) by coefficient dots -> the ys absorbed
-    and alpha2 sampled (one `keccak256_chain` launch)
+    and alpha2 sampled (one `keccak256_chain` or `poseidon2_duplex_chain`
+    launch)
   _device_body_p2: reduced-opening accumulation -> every FRI round (lazy
     commit, root observed and beta sampled on the device, device fold) ->
     final polynomial -> proof-of-work grind and query indices (one
-    `keccak_grind` launch) -> query gathers
+    `keccak_grind` or `poseidon2_grind` launch) -> query gathers
   _prove_device_fs: one device-to-host copy of every output (`_pull`),
     the transcript's flags checked, and the pruned multiproofs rebuilt on
     the host from non-pruned per-level gathers (`_pruned_wire`)
@@ -20,9 +23,9 @@ Against the reference: eager PyTorch has nothing to compile, so there is
 no program cache, no `jax.jit` and no profiling probe (`stop=`), and the
 static structure (`meta`) is found on every call. Alpha2 is sampled on the
 device, the reference's branch for configs without a fast host hash: the
-JAX package replays the transcript with a host C keccak that the port
-does not have (its host keccak is pure Python). With no host replay
-between the two bodies, one copy at the end serves both.
+JAX package replays the transcript with a host C keccak or Poseidon2
+that the port does not have (its host hashes are Python and numpy). With
+no host replay between the two bodies, one copy at the end serves both.
 
 `_prove_device_fs` raises `_Unsupported` where the reference does: a
 matrix shorter than the Merkle cap, and the (cryptographically
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from ..air.api import get_log_num_quotient_chunks
+from ..challenger.device_duplex import DeviceDuplexChallenger
 from ..challenger.device_serializing import DeviceSerializingChallenger32
 from ..fri.config import compute_log_arity_for_round
 from ..fri.proof import BatchMultiOpening, CommitPhaseStep, FriProof
@@ -51,6 +55,7 @@ from ..fri.two_adic_pcs import (
     _inv_denom_kernel,
     _mred,
 )
+from ..hashes.poseidon2 import default_poseidon2
 from ..merkle.mmcs import MerkleProverData, _build_layers
 from ..ops.ntt import coset_lde_batch, idft, powers_device
 from ..utils.bits import bitrev_permute_axis0, log2_strict
@@ -161,6 +166,19 @@ def _max_heights(data_with_points):
     return out
 
 
+def _device_challenger(config, device):
+    """The config's transcript on `device`; each needs its digest kind."""
+    field_digests = config.pcs.mmcs.digest_is_field
+    if config.challenger_kind == "keccak":
+        if field_digests:
+            raise _Unsupported("the keccak transcript needs word digests")
+        return DeviceSerializingChallenger32(config.F, device)
+    if not field_digests:
+        raise _Unsupported("the duplex transcript needs field digests")
+    return DeviceDuplexChallenger(config.F, default_poseidon2(config.F, 24),
+                                  device)
+
+
 class _CarriedTree:
     """What the second body needs of a commitment: its matrices, digest
     layers and cap height (the kept coefficients are dropped)."""
@@ -199,7 +217,7 @@ def _device_body_p1(config, air, trace, publics_m, meta, mark):
     trace_domain = pcs.natural_domain_for_degree(n)
     trace_data = _pcs_commit_lazy(pcs, [(trace_domain, trace)])
     mark("commit trace")
-    ch = DeviceSerializingChallenger32(F, trace.device)
+    ch = _device_challenger(config, trace.device)
     ch.observe_host_ints([log_n, log_n, 0])
     ch.observe_words(trace_data.commit_dev)
     ch.observe_words(publics_m)  # already Montgomery form, the wire words
@@ -408,8 +426,9 @@ def _prove_device_fs(config, air, trace, public_values, spans=None):
     mark("pull")
 
     it = iter(pulled)
-    trace_root = _digest_wire(next(it))
-    quotient_root = _digest_wire(next(it))
+    mmcs = pcs.mmcs
+    trace_root = _digest_wire(mmcs, next(it))
+    quotient_root = _digest_wire(mmcs, next(it))
     uses_next = meta["uses_next"]
     num_chunks = meta["num_chunks"]
     n_ys = (2 if uses_next else 1) + num_chunks
@@ -422,7 +441,8 @@ def _prove_device_fs(config, air, trace, public_values, spans=None):
     log_arities = meta["log_arities"]
     log_global_max_height = meta["log_global_max_height"]
     num_queries = params.num_queries
-    fri_commits = [_digest_wire(next(it)) for _ in log_arities]
+    fri_mmcs = pcs.fri_mmcs.inner
+    fri_commits = [_digest_wire(fri_mmcs, next(it)) for _ in log_arities]
     if meta["n_commit_pow"]:
         commit_pows = [int(x) for x in next(it)]
     else:
@@ -446,7 +466,7 @@ def _prove_device_fs(config, air, trace, public_values, spans=None):
                         for i in indices]
         mat_lists = [F.from_monty_np(next(it)).reshape(num_queries, -1)
                      .tolist() for _ in range(n_mats)]
-        sib_levels = [next(it) for _ in range(levels)]
+        sib_levels = [mmcs.digests_std(next(it)) for _ in range(levels)]
         input_openings.append(BatchMultiOpening(
             opened_values=[[mat_lists[k][q] for k in range(n_mats)]
                            for q in range(num_queries)],
@@ -459,7 +479,7 @@ def _prove_device_fs(config, air, trace, public_values, spans=None):
         row_indices = [i >> log_arity for i in qidx]
         rows = F.from_monty_np(next(it)).reshape(
             num_queries, arity, E.D).tolist()
-        sib_levels = [next(it) for _ in range(levels)]
+        sib_levels = [fri_mmcs.digests_std(next(it)) for _ in range(levels)]
         sibs = [[tuple(g) for j, g in enumerate(grp) if j != idx % arity]
                 for idx, grp in zip(qidx, rows)]
         commit_phase_steps.append(CommitPhaseStep(
@@ -488,9 +508,10 @@ def _prove_device_fs(config, air, trace, public_values, spans=None):
     )
 
 
-def _digest_wire(a):
+def _digest_wire(mmcs, a):
     """A pulled commitment -> wire form: a root's 8 ints, or a cap's
     digests as nested tuples."""
+    a = mmcs.digests_std(a)
     if a.ndim == 1:
         return tuple(int(x) for x in a)
     return tuple(tuple(int(x) for x in row) for row in a)

@@ -1,5 +1,6 @@
 """plonky3_tpu_torch on the card: each CUDA kernel against its plain
-version, and a proof on CUDA against the same proof on the CPU.
+version, and proofs of both configs on CUDA against the same proofs on
+the CPU.
 
 These need an NVIDIA GPU and skip without one. On the card, where JAX is
 not installed, run them without the JAX test configuration:
@@ -148,9 +149,51 @@ def test_keccak_grind_matches_plain(cuda, m, pow_bits):
     assert torch.equal(got, kc.keccak_grind_plain(words, pow_bits, F.P))
 
 
-def test_cuda_fast_proof_equals_cpu(cuda):
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 10528])
+def test_poseidon2_duplex_chain_matches_plain(cuda, n):
+    from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.hashes import poseidon2_cuda as pc
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+
+    perm = default_poseidon2(F, 24)
+    rng = np.random.default_rng(n)
+    state, words = _words(rng, (24,), F.P, cuda), _words(rng, (n,), F.P, cuda)
+    before = kernels.LAUNCHES["poseidon2_duplex_chain"]
+    got = pc.poseidon2_duplex_chain(perm, state, words)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["poseidon2_duplex_chain"] - before == 1
+    assert torch.equal(got, pc.poseidon2_duplex_chain_plain(perm, state,
+                                                            words))
+
+
+@pytest.mark.parametrize("lane,pow_bits", [(0, 1), (5, 2), (15, 12),
+                                           (3, 16)])
+def test_poseidon2_grind_matches_plain(cuda, lane, pow_bits):
+    from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.hashes import poseidon2_cuda as pc
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+
+    perm = default_poseidon2(F, 24)
+    base = _words(np.random.default_rng(lane), (24,), F.P, cuda)
+    before = kernels.LAUNCHES["poseidon2_grind"]
+    got = pc.poseidon2_grind(perm, base, lane, pow_bits)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["poseidon2_grind"] - before == 1
+    assert torch.equal(got, pc.poseidon2_grind_plain(perm, base, lane,
+                                                     pow_bits))
+
+
+def _configs():
+    from plonky3_tpu_torch.stark import config
+
+    return {"keccak": (config.keccak_stark_config, "keccak_grind"),
+            "poseidon2": (config.poseidon2_stark_config, "poseidon2_grind")}
+
+
+@pytest.mark.parametrize("kind", ["keccak", "poseidon2"])
+def test_cuda_fast_proof_equals_cpu(cuda, kind):
     """The device-transcript prover on CUDA gives the CPU's proof, which
-    equals prove()'s, with one device-to-host copy."""
+    equals prove()'s, with one device-to-host copy and one grind."""
     from plonky3_tpu_torch import kernels
     from plonky3_tpu_torch.fri.config import FriParameters
     from plonky3_tpu_torch.models.poseidon2_air import (
@@ -158,8 +201,9 @@ def test_cuda_fast_proof_equals_cpu(cuda):
         generate_vectorized_trace,
     )
     from plonky3_tpu_torch.stark import fast_prover
-    from plonky3_tpu_torch.stark.config import keccak_stark_config
     from plonky3_tpu_torch.stark.prover import prove
+
+    make_config, grind = _configs()[kind]
 
     params = FriParameters(log_blowup=1, log_final_poly_len=0,
                            max_log_arity=3, num_queries=10,
@@ -170,17 +214,18 @@ def test_cuda_fast_proof_equals_cpu(cuda):
     out = {}
     for dev in (cuda, torch.device("cpu")):
         trace, _ = generate_vectorized_trace(air, inputs, device=dev)
-        cfg = keccak_stark_config(F, E, params, device=dev)
-        before = (fast_prover.PULLS["count"], kernels.LAUNCHES["keccak_grind"])
+        cfg = make_config(F, E, params, device=dev)
+        before = (fast_prover.PULLS["count"], kernels.LAUNCHES[grind])
         out[dev.type] = fast_prover._prove_device_fs(cfg, air, trace, [])
         if dev.type == "cuda":
             assert fast_prover.PULLS["count"] - before[0] == 1
-            assert kernels.LAUNCHES["keccak_grind"] - before[1] == 1
+            assert kernels.LAUNCHES[grind] - before[1] == 1
         out[dev.type + "_prove"] = prove(cfg, air, trace, [])
     assert out["cuda"] == out["cpu"] == out["cpu_prove"] == out["cuda_prove"]
 
 
-def test_prove_fast_on_cuda_never_falls_back(cuda, monkeypatch):
+@pytest.mark.parametrize("kind", ["keccak", "poseidon2"])
+def test_prove_fast_on_cuda_never_falls_back(cuda, monkeypatch, kind):
     """Out of the device path's scope, prove_fast on a CUDA trace raises
     instead of proving with the host transcript."""
     from plonky3_tpu_torch.fri.config import FriParameters
@@ -189,7 +234,6 @@ def test_prove_fast_on_cuda_never_falls_back(cuda, monkeypatch):
         generate_vectorized_trace,
     )
     from plonky3_tpu_torch.stark import fast_prover
-    from plonky3_tpu_torch.stark.config import keccak_stark_config
 
     def unsupported(*args, **kw):
         raise fast_prover._Unsupported("out of scope")
@@ -201,7 +245,7 @@ def test_prove_fast_on_cuda_never_falls_back(cuda, monkeypatch):
     air = Poseidon2VectorAir(F, 16, vector_len=1)
     inputs = F.rand_np(np.random.default_rng(3), (64, 16))
     trace, _ = generate_vectorized_trace(air, inputs, device=cuda)
-    cfg = keccak_stark_config(F, E, params, device=cuda)
+    cfg = _configs()[kind][0](F, E, params, device=cuda)
     monkeypatch.setattr(fast_prover, "_prove_device_fs", unsupported)
     with pytest.raises(fast_prover._Unsupported):
         fast_prover.prove_fast(cfg, air, trace, [])
