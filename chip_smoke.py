@@ -10,15 +10,21 @@ Phases, each printed as one JSON line:
            (SMs x 64 lanes x the maximum SM clock), then an nvcc build
            of every kernel in plonky3_tpu_torch/csrc/, with ptxas's
            register report and the SASS opcode counts of the main path's
-           size-2^9 NTT kernels;
+           size-2^9 NTT kernels; then the latency probe (csrc/probe.cu):
+           the cycles a dependent instruction takes (an IADD3/LOP3 chain
+           and an IMAD.WIDE.U32 chain, the smaller is L; a shuffle's and a
+           warp sum's beside) and the SM clock one busy warp sees, for the
+           latency bound of serial chains;
   kernels  each kernel against its plain PyTorch version on the card, bit
            for bit, at the main path's shapes and at small ones (NTTs up
            to 2^22 rows, each with the k1 and k2 launches it made, which
            must match ntt_cuda.plan; the Merkle ladder from 2 to 2^18
            digests, with its launches against keccak_cuda.ladder_plan),
            with the median kernel time, the plain version's time, the
-           kernel's bound (the least time for its bytes or for the
-           busier integer pipe's operations on this card) and its share
+           kernel's bound (the least time for its bytes, for the busier
+           integer pipe's operations on this card, or, for the serial
+           transcript chains, for their dependent instructions one after
+           another at L cycles each and the maximum clock) and its share
            (bound / time; above 1.05 the count is wrong and the script
            fails); at 2^18 leaves also the per-level compress route that
            the ladder replaced. The transcript's keccak-256 kernels
@@ -91,6 +97,8 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
+from typing import NamedTuple
 
 # H100 SXM published HBM bandwidth (NVIDIA data sheet). The integer peak
 # is read from the card in phase_card: SMs × 64 lanes × the maximum SM
@@ -194,12 +202,23 @@ def profiled_ms(torch, fn, reps: int, tag: str = ""):
 PROFILE_SHORT = []
 
 
-def bound_ms(peak, n_bytes: float, alu_ops: float, mul_ops: float = 0):
+class Card(NamedTuple):
+    """What the bounds read of the card (phase_card)."""
+    int_ops_per_s: float  # SMs × 64 lanes × the maximum SM clock
+    dep_instr_s: float  # L cycles (the probe) over the maximum SM clock
+
+
+def bound_ms(card, n_bytes: float, alu_ops: float, mul_ops: float = 0,
+             depth: float = 0):
     """The least time for the work and what sets it: the bytes over the
-    HBM rate, or the busier integer pipe over `peak` ops/s."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(alu_ops, mul_ops) / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    HBM rate, the busier integer pipe over the card's integer peak, or
+    `depth` dependent instructions one after another (a serial chain's
+    latency)."""
+    times = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(alu_ops, mul_ops) / card.int_ops_per_s * 1e3,
+             "latency": depth * card.dep_instr_s * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
 
 
 def share(what, bound, ms):
@@ -218,6 +237,16 @@ def share(what, bound, ms):
 # (48); chi, one LOP3 per half-lane (50); iota, two XORs (2). 180 per
 # round, 24 rounds.
 KECCAK_F_ALU = (20 + 10 + 50 + 48 + 50 + 2) * 24
+# The depth of keccak-f's shortest dependency graph in those instructions
+# (not the kernel's graph), per round. rho's rotation distributes over
+# theta's xors, so a lane's new value is rot_r(A ^ C[x-1]) ^
+# rot_(r+1)(C[x+1]): A ^ C[x-1] (six lanes) and C[x+1] (five) each a tree
+# of 2 LOP3, one SHF a half, one LOP3 to join them: 4, and no fewer (a
+# gate of depth 2 that holds rotated data covers at most 3 lanes, and a
+# lane reads 11); chi, 1 LOP3. iota's constant and the absorbed words are
+# known early: they join those trees as one more input, off the path.
+# 5 a round, 24 rounds.
+KECCAK_F_DEPTH = (4 + 1) * 24
 
 
 def ntt_ops(butterflies: int, shoups: int):
@@ -230,7 +259,7 @@ def ntt_ops(butterflies: int, shoups: int):
     return 5 * butterflies + shoups, 3 * (butterflies + shoups)
 
 
-def ntt_bound(peak, kernel, log_a, log_b, w, zero_top, batch=1):
+def ntt_bound(card, kernel, log_a, log_b, w, zero_top, batch=1):
     """Bound of one k1 or k2 launch: `batch` transforms of 2^(log_a +
     log_b) rows × w words, their tables read once. k1 reads the input
     (half the rows with zero_top), its twiddles and the (std, Shoup)
@@ -240,28 +269,28 @@ def ntt_bound(peak, kernel, log_a, log_b, w, zero_top, batch=1):
     if kernel == "k1":
         rows = n // 2 if zero_top else n
         zt = pairs if zero_top else 0
-        return bound_ms(peak, 4 * (batch * (rows * w + n * w) + 2 * n
+        return bound_ms(card, 4 * (batch * (rows * w + n * w) + 2 * n
                                    + (1 << log_a)),
                         *(batch * c for c in ntt_ops(pairs * log_a - zt,
                                                      zt + n * w)))
-    return bound_ms(peak, 4 * (batch * 2 * n * w + (1 << log_b)),
+    return bound_ms(card, 4 * (batch * 2 * n * w + (1 << log_b)),
                     *(batch * c for c in ntt_ops(pairs * log_b, 0)))
 
 
-def sponge_bound(peak, h, w):
+def sponge_bound(card, h, w):
     """Leaf sponge over (h, w) words: ceil(ceil(w/2) / 17) keccak-f a row."""
     nb = -(-((w + 1) // 2) // 17)
-    return bound_ms(peak, 4 * h * (w + 8), h * nb * KECCAK_F_ALU)
+    return bound_ms(card, 4 * h * (w + 8), h * nb * KECCAK_F_ALU)
 
 
-def compress_bound(peak, h):
+def compress_bound(card, h):
     """One level of h nodes: 16 words in and 8 out per node."""
-    return bound_ms(peak, 4 * h * 24, h * KECCAK_F_ALU)
+    return bound_ms(card, 4 * h * 24, h * KECCAK_F_ALU)
 
 
-def ladder_bound(peak, m, nodes):
+def ladder_bound(card, m, nodes):
     """Ladder over m digests writing `nodes` nodes (m - 1 to the root)."""
-    return bound_ms(peak, 32 * (m + nodes), nodes * KECCAK_F_ALU)
+    return bound_ms(card, 32 * (m + nodes), nodes * KECCAK_F_ALU)
 
 
 # 32-bit instructions of one width-24 Poseidon2 permutation
@@ -279,36 +308,69 @@ P2_ADDS = 110 + 8 * (24 + 110) + 23 * (1 + 23 + 24)
 P2_PRODUCTS = 8 * 24 * 2 + 23 * (2 + 24)
 POSEIDON2_24_ALU = 2 * P2_ADDS + P2_PRODUCTS
 POSEIDON2_24_MUL = 3 * P2_PRODUCTS
-P2_TABLE_WORDS = 4 * 24 + 23 + 4 * 24 + 24  # the kernels' constant table
+# The depth of the function's shortest dependency graph in those forms
+# (not the kernel's graph): an add or a subtraction 2, a product 4. A
+# round constant joins the linear map before its s-box as one more input,
+# off the path. The external layer: an output word is a linear form of
+# the 24 words whose coefficients sum to 49, so a tree of adds is at
+# least 6 deep (a product by a constant, as deep as two adds, shortens
+# no such tree here), and 2·o_i plus the other five blocks' o (o, M4's
+# output, 3 adds) reaches 6: 12. An external round: the cube (two
+# products, 8) and the layer: 20. An internal round on lane 0's path: the
+# cube (8), then lane 0's next word Q_0 - s (V_0 = -2, so S + V_0·s =
+# Q_0 - s, Q_0 the sum of the other 23 words, which the recurrence of
+# csrc/poseidon2.cu keeps ready off the path): 10. The layer once, 8
+# external rounds, 23 internal: 402.
+POSEIDON2_24_DEPTH = 12 + 8 * (8 + 12) + 23 * (8 + 2)
+P2_TABLE_WORDS = 4 * 24 + 23 + 4 * 24 + 24  # the grind's constant table
+P2_CHAIN_TABLE_WORDS = P2_TABLE_WORDS + 23 * 24 + 24  # the chain's
 
 
-def p2_chain_bound(peak, n):
-    """Duplex absorb of n words: max(1, ceil(n/16)) permutations one after
-    another; the state, the words and the table read, the state written."""
+def p2_chain_depth(n):
+    """Dependent instructions of a duplex absorb of n words: nb = max(1,
+    ceil(n/16)) permutations one after another. Between two of them the
+    last layer, the absorb and the next first layer are one affine map of
+    the 24 cubes, each output reading all 24 with coefficients of at least
+    14: products by constants and a tree of 25 leaves, 14 deep, where the
+    two layers took 24. With n > 0 the first layer reads only words 16..23
+    of the given state (coefficient sums of at most 21): 10, not 12."""
     nb = max(1, -(-n // 16))
-    return bound_ms(peak, 4 * (24 + n + P2_TABLE_WORDS + 24),
-                    nb * POSEIDON2_24_ALU, nb * POSEIDON2_24_MUL)
+    return nb * POSEIDON2_24_DEPTH - 10 * (nb - 1) - (2 if n > 0 else 0)
 
 
-def p2_grind_bound(peak, w):
+def p2_chain_bound(card, n):
+    """Duplex absorb of n words, at least p2_chain_depth(n) dependent
+    instructions; the state, the words and the table read, the state
+    written."""
+    nb = max(1, -(-n // 16))
+    return bound_ms(card, 4 * (24 + n + P2_CHAIN_TABLE_WORDS + 24),
+                    nb * POSEIDON2_24_ALU, nb * POSEIDON2_24_MUL,
+                    p2_chain_depth(n))
+
+
+def p2_grind_bound(card, w):
     """The least work that finds witness w: w + 1 permutations."""
-    return bound_ms(peak, 4 * (24 + P2_TABLE_WORDS + 1),
+    return bound_ms(card, 4 * (24 + P2_TABLE_WORDS + 1),
                     (w + 1) * POSEIDON2_24_ALU, (w + 1) * POSEIDON2_24_MUL)
 
 
-def chain_bound(peak, n, k):
+def chain_bound(card, n, k):
     """keccak-256 of n words, then k - 1 re-hashes of the digest: n//34 + 1
-    + k - 1 keccak-f, one after another (the bound counts no latency, so
-    a chain's share stays low)."""
-    return bound_ms(peak, 4 * n + 32 * k, (n // 34 + k) * KECCAK_F_ALU)
+    + k - 1 keccak-f, one after another, each KECCAK_F_DEPTH dependent
+    instructions deep, less one in each re-hash (its first round reads
+    four digest lanes and constants: a lane's theta and rho take 3) and
+    plus one for the last iota, which nothing after it absorbs."""
+    f = n // 34 + k
+    return bound_ms(card, 4 * n + 32 * k, f * KECCAK_F_ALU, 0,
+                    f * KECCAK_F_DEPTH - (k - 1) + 1)
 
 
-def grind_bound(peak, m, w):
+def grind_bound(card, m, w):
     """The least work that finds witness w after m words: the blocks
     before the witness's once, then w + 1 candidates of 1 block (2 when
     the padding opens a block)."""
     tail = 2 if (m + 1) % 34 == 0 else 1
-    return bound_ms(peak, 4 * m + 4,
+    return bound_ms(card, 4 * m + 4,
                     (m // 34 + tail * (w + 1)) * KECCAK_F_ALU)
 
 
@@ -354,7 +416,7 @@ def recorded(torch, kernels, fn):
                  for f, a, start, end in calls]
 
 
-def launch_bounds(peak, calls, witnesses=()):
+def launch_bounds(card, calls, witnesses=()):
     """{record name: {launches, bound_ms, ms}} summed over recorded
     launches (the C entries' arguments: sizes, widths, levels;
     `witnesses`, the grinds' results in launch order; ms, the launches'
@@ -364,26 +426,26 @@ def launch_bounds(peak, calls, witnesses=()):
     found = iter(witnesses)
     for fn, a, ms in calls:
         if fn == "ntt_k1":
-            name, b = "ntt_k1", ntt_bound(peak, "k1", a[4], a[5], a[6],
+            name, b = "ntt_k1", ntt_bound(card, "k1", a[4], a[5], a[6],
                                           bool(a[7]), a[8])
         elif fn == "ntt_k2":
-            name, b = "ntt_k2", ntt_bound(peak, "k2", a[3], a[4], a[5],
+            name, b = "ntt_k2", ntt_bound(card, "k2", a[3], a[4], a[5],
                                           False, a[6])
         elif fn == "keccak_sponge_rows":
-            name, b = "keccak_sponge", sponge_bound(peak, a[2], a[3])
+            name, b = "keccak_sponge", sponge_bound(card, a[2], a[3])
         elif fn == "keccak_compress":
-            name, b = "keccak_compress", compress_bound(peak, a[3])
+            name, b = "keccak_compress", compress_bound(card, a[3])
         elif fn == "keccak256_chain":
-            name, b = "keccak256_chain", chain_bound(peak, a[2], a[3])
+            name, b = "keccak256_chain", chain_bound(card, a[2], a[3])
         elif fn == "keccak_grind":
-            name, b = "keccak_grind", grind_bound(peak, a[1], next(found))
+            name, b = "keccak_grind", grind_bound(card, a[1], next(found))
         elif fn == "poseidon2_duplex_chain":
-            name, b = "poseidon2_duplex_chain", p2_chain_bound(peak, a[2])
+            name, b = "poseidon2_duplex_chain", p2_chain_bound(card, a[2])
         elif fn == "poseidon2_grind":
-            name, b = "poseidon2_grind", p2_grind_bound(peak, next(found))
+            name, b = "poseidon2_grind", p2_grind_bound(card, next(found))
         else:
             m, levels = a[2], a[3]
-            name, b = "keccak_ladder", ladder_bound(peak, m,
+            name, b = "keccak_ladder", ladder_bound(card, m,
                                                      m - (m >> levels))
         out[name]["launches"] += 1
         out[name]["bound_ms"] += b[0]
@@ -415,6 +477,49 @@ def ntt_sass(kernels):
             for k, c in sorted(counts.items())}
 
 
+# the probe's chains: 2^18 steps each
+PROBE_REPS = 1 << 12
+PROBE_SRC = Path(__file__).resolve().parent / "plonky3_tpu_torch/csrc/probe.cu"
+
+
+def start_probe_build(kernels):
+    """Start nvcc on csrc/probe.cu, an instrument of this script and not
+    one of the port's kernels; returns (process, library path)."""
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = kernels.BUILD_DIR / f"probe-{os.getpid()}.so"
+    return kernels.start_nvcc(PROBE_SRC, so), so
+
+
+def latency_probe(torch, kernels, build):
+    """(L, the SM clock one busy warp sees in MHz, the probe's record):
+    csrc/probe.cu's dependent chains, the second of two launches, once
+    `build` (start_probe_build's) has finished. L is the smaller of the
+    IADD3/LOP3 and IMAD.WIDE.U32 chains' cycles a step."""
+    import ctypes
+
+    proc, so = build
+    text, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {PROBE_SRC}:\n{text}")
+    probe = ctypes.CDLL(str(so)).latency_probe
+    probe.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong,
+                      ctypes.c_void_p, ctypes.c_void_p]
+    probe.restype = ctypes.c_int
+    out = torch.zeros(36, dtype=torch.int64, device="cuda")
+    for _ in range(2):
+        kernels.check(probe(0x9E3779B9, 0x7F4A7C15, PROBE_REPS,
+                            out.data_ptr(), kernels.stream_of(out)),
+                      "latency_probe")
+        torch.cuda.synchronize()
+    c_add, ns_add, c_mul, ns_mul = (int(v) for v in out[:4].tolist())
+    steps = PROBE_REPS * 64
+    rec = {"iadd3_lop3_cycles": c_add / (2 * steps),
+           "imad_wide_cycles": c_mul / steps,
+           "one_warp_sm_clock_mhz": (c_add + c_mul) / (ns_add + ns_mul) * 1e3}
+    lat = min(rec["iadd3_lop3_cycles"], rec["imad_wide_cycles"])
+    return lat, rec["one_warp_sm_clock_mhz"], rec
+
+
 def phase_card(torch, kernels):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -428,22 +533,30 @@ def phase_card(torch, kernels):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     peak = sms * INT_LANES_PER_SM * clock_mhz * 1e6
     t0 = time.perf_counter()
-    report = kernels.build_all()
+    probe_build = start_probe_build(kernels)
+    try:
+        report = kernels.build_all()
+    except BaseException:
+        probe_build[0].kill()
+        raise
+    build_s = round(time.perf_counter() - t0, 3)
     regs = {}
     for name, (_, out) in report.items():
         regs[name] = [ln.strip().replace("ptxas info    : ", "")
                       for ln in out.splitlines()
                       if "registers" in ln or "spill" in ln
                       or "entry function" in ln]
+    lat, warp_mhz, probe = latency_probe(torch, kernels, probe_build)
     emit({"phase": "card", "nvidia_smi": smi, "sms": sms,
           "max_sm_clock_mhz": clock_mhz, "int_ops_per_s": peak,
+          "dep_latency_cycles": lat, "one_warp_sm_clock_mhz": warp_mhz,
+          "probe": probe,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": round(time.perf_counter() - t0, 3),
-          "built": sorted(report), "ptxas": regs,
+          "build_s": build_s, "built": sorted(report), "ptxas": regs,
           "ntt_sass": ntt_sass(kernels)})
-    return peak
+    return Card(peak, lat / (clock_mhz * 1e6))
 
 
 def _rand_words(torch, rng, shape, P):
@@ -467,7 +580,7 @@ def compare(what, got, want):
     return err
 
 
-def phase_kernels(torch, np, peak):
+def phase_kernels(torch, np, card):
     """Every kernel against its plain version; returns the per-kernel
     records of the main-path shapes."""
     from plonky3_tpu_torch import kernels
@@ -524,8 +637,8 @@ def phase_kernels(torch, np, peak):
                                                                  10)
             plain = cuda_ms(torch, lambda: nc.dif_fused_plain(
                 F, x, log_n, inverse, zero_top), 2)
-            b1 = ntt_bound(peak, "k1", log_a, log_b, w, zero_top)
-            b2 = ntt_bound(peak, "k2", log_a, log_b, w, zero_top)
+            b1 = ntt_bound(card, "k1", log_a, log_b, w, zero_top)
+            b2 = ntt_bound(card, "k2", log_a, log_b, w, zero_top)
             sh1, sh2 = share("ntt_k1", b1[0], k1), share("ntt_k2", b2[0], k2)
             rec.update(k1_ms=k1, k2_ms=k2, k1_ms_source=k1_src,
                        k2_ms_source=k2_src, k1_wall_ms=k1_wall,
@@ -560,7 +673,7 @@ def phase_kernels(torch, np, peak):
             wall = cuda_ms(torch, run, 10)
             plain = cuda_ms(torch, lambda: kc.keccak_sponge_rows_plain(flat),
                             1)
-            b = sponge_bound(peak, h, w)
+            b = sponge_bound(card, h, w)
             rec.update(ms=ms, ms_source=ms_src, wall_ms=wall, plain_ms=plain,
                        bound_ms=b[0], bound_by=b[1],
                        share=share(f"sponge {w}", b[0], ms))
@@ -587,7 +700,7 @@ def phase_kernels(torch, np, peak):
             wall = cuda_ms(torch, run, 20)
             plain = cuda_ms(torch,
                             lambda: kc.keccak_compress_plain(left, right), 2)
-            b = compress_bound(peak, h)
+            b = compress_bound(card, h)
             rec.update(ms=ms, ms_source=ms_src, wall_ms=wall, plain_ms=plain,
                        bound_ms=b[0], bound_by=b[1],
                        share=share("compress", b[0], ms))
@@ -629,7 +742,7 @@ def phase_kernels(torch, np, peak):
             route = cuda_ms(torch, lambda: comp.ladder_device(d), 10)
             plain = cuda_ms(torch, lambda: kc.keccak_merkle_ladder_plain(d),
                             1)
-            b = ladder_bound(peak, n, n - 1)
+            b = ladder_bound(card, n, n - 1)
             rec.update(ms=ms, ms_source=ms_src, wall_ms=wall, plain_ms=plain,
                        per_level_route_device_ms=old_dev,
                        per_level_route_wall_ms=old_wall,
@@ -651,11 +764,18 @@ def phase_kernels(torch, np, peak):
     # pads in one word; 34: a fresh block), and the main path's longest
     # call, the opened values absorbed before alpha2 (10,536 words, k = 2).
     # The plain chain of k digests is the first k rows of the plain chain
-    # of 13, so each length runs its plain version once.
+    # of 13, so each length runs its plain version once: at 10,536 words
+    # (some 21 s) the timed plain chain of 2, its last digest then
+    # re-hashed 11 times by the same plain function.
     serializing = "plonky3_tpu/challenger/device_serializing.py"
     for n in (0, 1, 33, 34, 35, 10536):
         words = _rand_words(torch, rng, (n,), 1 << 32)
-        want = kc.keccak256_chain_plain(words, 13)
+        if n == 10536:
+            want, plain = once_ms(torch, lambda: kc.keccak256_chain_plain(
+                words, 2))
+            want = torch.cat([want, kc.keccak256_chain_plain(want[1], 11)])
+        else:
+            want = kc.keccak256_chain_plain(words, 13)
         for k in (1, 2, 13):
             got = kc.keccak256_chain(words, k)
             err = compare(f"chain {n} {k}", got, want[:k])
@@ -665,19 +785,19 @@ def phase_kernels(torch, np, peak):
                 ms, ms_src = profiled_ms(torch, chain, 10,
                                          "keccak256_chain_kernel")
                 wall = cuda_ms(torch, chain, 10)
-                # one run: the plain chain takes some 23 s here
-                plain = once_ms(torch, lambda: kc.keccak256_chain_plain(
-                    words, 2))[1]
-                b = chain_bound(peak, n, k)
+                b = chain_bound(card, n, k)
                 rec.update(ms=ms, ms_source=ms_src, wall_ms=wall,
-                           plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                           plain_ms=plain,
+                           us_per_keccak_f=ms * 1e3 / (n // 34 + k),
+                           bound_ms=b[0], bound_by=b[1],
                            share=share("chain", b[0], ms))
                 records["keccak256_chain"] = dict(
                     name="keccak256_chain", route="cuda", source=src,
                     replaces=f"{serializing}:57", max_abs_err=err, ms=ms,
                     ms_source=ms_src, wall_ms=wall, plain_ms=plain,
                     bound_ms=b[0], bound_by=b[1], library_ms=None,
-                    share=rec["share"], shape=[n, k])
+                    share=rec["share"],
+                    us_per_keccak_f=rec["us_per_keccak_f"], shape=[n, k])
             emit({"phase": "kernels", "kernel": "keccak256_chain", **rec})
 
     # The proof-of-work grind: 18 words (the main path's message), 33 (the
@@ -699,7 +819,7 @@ def phase_kernels(torch, np, peak):
                 wall = cuda_ms(torch, grind, 10)
                 plain = cuda_ms(torch, lambda: kc.keccak_grind_plain(
                     words, 16, F.P), 2)
-                b = grind_bound(peak, m, w)
+                b = grind_bound(card, m, w)
                 rec.update(ms=ms, ms_source=ms_src, wall_ms=wall,
                            plain_ms=plain, bound_ms=b[0], bound_by=b[1],
                            share=share("grind", b[0], ms))
@@ -710,7 +830,7 @@ def phase_kernels(torch, np, peak):
                     bound_ms=b[0], bound_by=b[1], library_ms=None,
                     share=rec["share"], shape=[m, 16], witness=w)
             emit({"phase": "kernels", "kernel": "keccak_grind", **rec})
-    phase_kernels_poseidon2(torch, np, peak, rng, records)
+    phase_kernels_poseidon2(torch, np, card, rng, records)
     return records
 
 
@@ -731,7 +851,7 @@ def once_ms(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def phase_kernels_poseidon2(torch, np, peak, rng, records):
+def phase_kernels_poseidon2(torch, np, card, rng, records):
     """The Poseidon2 duplex transcript's kernels against their plain
     versions: the chain at 0 blocks (a bare permutation), 1 and 2 blocks,
     partial last blocks of 1 and 15 lanes, and the Poseidon2 path's
@@ -757,7 +877,7 @@ def phase_kernels_poseidon2(torch, np, peak, rng, records):
             chain = lambda: pc.poseidon2_duplex_chain(  # noqa: E731
                 perm, state, words)
             ms, ms_src = profiled_ms(torch, chain, 10, "duplex_chain_kernel")
-            b = p2_chain_bound(peak, n)
+            b = p2_chain_bound(card, n)
             rec.update(ms=ms, ms_source=ms_src,
                        wall_ms=cuda_ms(torch, chain, 10),
                        us_per_permutation=ms * 1e3 / nb, bound_ms=b[0],
@@ -790,7 +910,7 @@ def phase_kernels_poseidon2(torch, np, peak, rng, records):
                     perm, base, lane, 16)
                 ms, ms_src = profiled_ms(torch, grind, 10,
                                          "duplex_grind_kernel")
-                b = p2_grind_bound(peak, w)
+                b = p2_grind_bound(card, w)
                 rec.update(ms=ms, ms_source=ms_src,
                            wall_ms=cuda_ms(torch, grind, 10),
                            bound_ms=b[0], bound_by=b[1],
@@ -913,7 +1033,7 @@ def phase_small(torch, np):
 MAIN_PATH = ("ntt_k1", "ntt_k2", "keccak_sponge", "keccak_ladder")
 
 
-def phase_full(torch, np, kernels, peak):
+def phase_full(torch, np, kernels, card):
     """The benchmark workload; returns the timed prove's launch counts,
     the per-proof bounds and the profiled device time by kernel. A third
     prove collects per-stage spans and records every launch's shape; a
@@ -955,7 +1075,7 @@ def phase_full(torch, np, kernels, peak):
     _, calls = recorded(torch, kernels, lambda: prove(config, air, trace,
                                                       [], spans=spans))
     emit({"phase": "spans", "seconds": spans})
-    per_proof = launch_bounds(peak, calls)
+    per_proof = launch_bounds(card, calls)
     emit({"phase": "per_proof", "kernels": per_proof})
     device_ms = profile_prove(torch, kernels, prove, config, air, trace,
                               warm_s)
@@ -1014,7 +1134,7 @@ def sync_calls(torch, fn):
         if "synchroniz" in str(w.message))
 
 
-def phase_fast(torch, np, kernels, peak, full):
+def phase_fast(torch, np, kernels, card, full):
     """The main path: the full phase's workload through the device-
     transcript prover (`_prove_device_fs`, what prove_fast runs; on the
     card prove_fast raises rather than fall back). Returns its launches,
@@ -1071,7 +1191,7 @@ def phase_fast(torch, np, kernels, peak, full):
     fri = traced.opening_proof
     witnesses = ([w for w in fri.commit_pow_witnesses]
                  if params.commit_proof_of_work_bits else [])
-    per_proof = launch_bounds(peak, calls,
+    per_proof = launch_bounds(card, calls,
                               witnesses + [fri.query_pow_witness])
     emit({"phase": "fast_per_proof", "kernels": per_proof})
     syncs = sync_calls(torch, lambda: fp._prove_device_fs(config, air,
@@ -1084,7 +1204,7 @@ def phase_fast(torch, np, kernels, peak, full):
     emit({"phase": "fast_chain_calls",
           "calls": [{"n": a[2], "k": a[3], "keccak_f": a[2] // 34 + a[3],
                      "us": ms * 1e3,
-                     "bound_us": chain_bound(peak, a[2], a[3])[0] * 1e3}
+                     "bound_us": chain_bound(card, a[2], a[3])[0] * 1e3}
                     for fn, a, ms in calls if fn == "keccak256_chain"]})
     return dict(launches=launches, per_proof=per_proof, device_ms=device_ms)
 
@@ -1096,7 +1216,7 @@ KECCAK_KERNELS = ("keccak_sponge", "keccak_compress", "keccak_ladder",
                   "keccak256_chain", "keccak_grind")
 
 
-def phase_poseidon2(torch, np, kernels, peak):
+def phase_poseidon2(torch, np, kernels, card):
     """The benchmark workload under poseidon2_stark_config through the
     device-transcript prover (`_prove_device_fs`, what prove_fast runs),
     cold and warm, against prove(); then the port's verifier on its proof.
@@ -1162,7 +1282,7 @@ def phase_poseidon2(torch, np, kernels, peak):
     fri = traced.opening_proof
     witnesses = (list(fri.commit_pow_witnesses)
                  if params.commit_proof_of_work_bits else [])
-    per_proof = launch_bounds(peak, calls,
+    per_proof = launch_bounds(card, calls,
                               witnesses + [fri.query_pow_witness])
     emit({"phase": "poseidon2_per_proof", "kernels": per_proof})
     syncs = sync_calls(torch, lambda: fp._prove_device_fs(config, air,
@@ -1180,7 +1300,7 @@ def phase_poseidon2(torch, np, kernels, peak):
                              f"words, the kernels phase {P2_ALPHA2_WORDS}")
     emit({"phase": "poseidon2_chain_calls", "longest_words": longest,
           "calls": [{"n": n, "blocks": max(1, -(-n // 16)), "us": ms * 1e3,
-                     "bound_us": p2_chain_bound(peak, n)[0] * 1e3}
+                     "bound_us": p2_chain_bound(card, n)[0] * 1e3}
                     for n, ms in chains],
           "grind_us": [ms * 1e3 for fn, _, ms in calls
                        if fn == "poseidon2_grind"]})
@@ -1368,13 +1488,13 @@ def main(argv=None) -> int:
         seconds[name] = time.perf_counter() - t0
         return out
 
-    peak = timed("card", phase_card, torch, kernels)
-    records = timed("kernels", phase_kernels, torch, np, peak)
+    card = timed("card", phase_card, torch, kernels)
+    records = timed("kernels", phase_kernels, torch, np, card)
     mixed = timed("mixed", phase_mixed, torch, np, kernels)
     timed("small", phase_small, torch, np)
-    full = timed("full", phase_full, torch, np, kernels, peak)
-    fast = timed("fast", phase_fast, torch, np, kernels, peak, full)
-    p2 = timed("poseidon2", phase_poseidon2, torch, np, kernels, peak)
+    full = timed("full", phase_full, torch, np, kernels, card)
+    fast = timed("fast", phase_fast, torch, np, kernels, card, full)
+    p2 = timed("poseidon2", phase_poseidon2, torch, np, kernels, card)
     # launches, proof_* : the main path (the fast prover) of the kernel's
     # config, keccak or (the duplex transcript's kernels) Poseidon2;
     # *_prove: the keccak config's prove(); *_poseidon2: the NTT kernels

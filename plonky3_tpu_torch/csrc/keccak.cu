@@ -170,49 +170,69 @@ compress_kernel(const uint32_t* __restrict__ left, const uint32_t* __restrict__ 
 __constant__ int RHO[25] = {0,  1,  62, 28, 27, 36, 44, 6,  55, 20, 3,  10, 43,
                             25, 39, 41, 45, 15, 21, 8,  18, 2,  61, 56, 14};
 
-// 64-bit rotate left by a per-thread amount r in [0, 64).
-__device__ __forceinline__ uint64_t rotl_var(uint64_t v, int r) {
-    uint32_t lo = (uint32_t)v, hi = (uint32_t)(v >> 32);
-    if (r & 32) {
-        const uint32_t t = lo;
-        lo = hi;
-        hi = t;
-    }
-    const uint32_t nhi = __funnelshift_l(lo, hi, r);
-    const uint32_t nlo = __funnelshift_l(hi, lo, r);
-    return ((uint64_t)nhi << 32) | nlo;
-}
+// One warp lane's share of `keccak_f_warp`, computed once a launch. Lane
+// l = x + 5y < 25 holds state lane l; lanes 25..31 shadow lanes 0..6 (no
+// lane reads them).
+struct WarpLane {
+    int col[4];         // its column-mates x + 5·((y + j) % 5), j = 1..4
+    int xm1, xp1;       // lanes of columns x - 1 and x + 1 (its row)
+    int pi0, pi1, pi2;  // the lanes pi moves to (x, y), (x + 1, y), (x + 2, y)
+    int rho;            // its rho rotation mod 32
+    bool rho_swap;      // rotation >= 32: the halves swap first
+    uint64_t iota;      // all ones in lane 0, where iota's constant goes
+};
 
-// keccak-f with the state spread over a warp: lane l < 25 holds state lane
-// l = x + 5y. A round is two rounds of shuffles: theta's parities of the
-// columns x - 1 and x + 1 (ten lanes), then, after each lane applies its
-// own rho rotation, the three lanes that pi moves to (x, y), (x + 1, y) and
-// (x + 2, y), which chi combines. A lane issues about 50 instructions a
-// round where one thread with the whole state issues about 190, so a node
-// takes a fraction of the time on an otherwise idle SM. Lanes 25..31
-// compute on copies that no lane reads.
-__device__ __forceinline__ uint64_t keccak_f_warp(uint64_t a, int lane) {
-    constexpr unsigned ALL = 0xffffffffu;
+__device__ __forceinline__ WarpLane warp_lane(int lane) {
+    WarpLane w;
     const int l = lane < 25 ? lane : lane - 25;
     const int x = l % 5, y = l / 5;
-    const int xm1 = (x + 4) % 5, xp1 = (x + 1) % 5, xp2 = (x + 2) % 5;
-    // pi: B[X][Y] = rot(A[x'][y']) with (X, Y) = (y', 2x' + 3y')
-    const int pi0 = (x + 3 * y) % 5 + 5 * x, pi1 = (xp1 + 3 * y) % 5 + 5 * xp1,
-              pi2 = (xp2 + 3 * y) % 5 + 5 * xp2;
-    const int rho = RHO[l];
-#pragma unroll 1
-    for (int r = 0; r < 24; ++r) {
-        uint64_t cm = 0, cp = 0;
 #pragma unroll
-        for (int k = 0; k < 25; k += 5) {
-            cm ^= __shfl_sync(ALL, a, xm1 + k);
-            cp ^= __shfl_sync(ALL, a, xp1 + k);
-        }
-        const uint64_t ra = rotl_var(a ^ cm ^ rotl(cp, 1), rho);
-        const uint64_t b0 = __shfl_sync(ALL, ra, pi0), b1 = __shfl_sync(ALL, ra, pi1),
-                       b2 = __shfl_sync(ALL, ra, pi2);
-        a = b0 ^ (~b1 & b2);
-        if (lane == 0) a ^= RC[r];
+    for (int j = 0; j < 4; ++j) w.col[j] = x + 5 * ((y + 1 + j) % 5);
+    const int xm1 = (x + 4) % 5, xp1 = (x + 1) % 5, xp2 = (x + 2) % 5;
+    w.xm1 = xm1 + 5 * y;
+    w.xp1 = xp1 + 5 * y;
+    // pi: B[X][Y] = rot(A[x'][y']) with (X, Y) = (y', 2x' + 3y')
+    w.pi0 = (x + 3 * y) % 5 + 5 * x;
+    w.pi1 = (xp1 + 3 * y) % 5 + 5 * xp1;
+    w.pi2 = (xp2 + 3 * y) % 5 + 5 * xp2;
+    w.rho = RHO[l] & 31;
+    w.rho_swap = RHO[l] & 32;
+    w.iota = lane == 0 ? ~0ULL : 0ULL;
+    return w;
+}
+
+// keccak-f with the state spread over a warp (`WarpLane`). A round is three
+// stages of 64-bit shuffles (two SHFL each): theta's column parity from the
+// lane's four column-mates, then the parities of columns x - 1 and x + 1
+// from two lanes, then, after each lane applies its own rho rotation (two
+// funnel shifts after a select of the halves: no branch), the three lanes
+// that pi moves to (x, y), (x + 1, y) and (x + 2, y), which chi combines:
+// 9 shuffles, 18 SHFL, where gathering both parities' ten lanes at once
+// would take 13. The 24 rounds are unrolled, so iota's constants, masked
+// to lane 0, are constant-bank operands, not loads. A lane issues about
+// 50 instructions a round where one thread with the whole state issues
+// about 190, so a node takes a fraction of the time on an otherwise idle
+// SM.
+// Bound: latency; the function's shortest graph is 5 instructions a round
+// (KECCAK_F_DEPTH in chip_smoke.py). This round's own is 7 (theta's
+// rotate, rho and iota each a step of its own), and its shuffle stages
+// add theirs.
+__device__ __forceinline__ uint64_t keccak_f_warp(uint64_t a, const WarpLane& w) {
+    constexpr unsigned ALL = 0xffffffffu;
+#pragma unroll
+    for (int r = 0; r < 24; ++r) {
+        uint64_t c = a;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) c ^= __shfl_sync(ALL, a, w.col[j]);
+        const uint64_t cm = __shfl_sync(ALL, c, w.xm1), cp = __shfl_sync(ALL, c, w.xp1);
+        const uint64_t t = a ^ cm ^ rotl(cp, 1);
+        const uint32_t lo = (uint32_t)t, hi = (uint32_t)(t >> 32);
+        const uint32_t l2 = w.rho_swap ? hi : lo, h2 = w.rho_swap ? lo : hi;
+        const uint64_t ra = ((uint64_t)__funnelshift_l(l2, h2, w.rho) << 32) |
+                            __funnelshift_l(h2, l2, w.rho);
+        const uint64_t b0 = __shfl_sync(ALL, ra, w.pi0), b1 = __shfl_sync(ALL, ra, w.pi1),
+                       b2 = __shfl_sync(ALL, ra, w.pi2);
+        a = b0 ^ (~b1 & b2) ^ (RC[r] & w.iota);
     }
     return a;
 }
@@ -267,7 +287,7 @@ merkle_ladder_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
                     const uint2 v = ((const uint2*)(kids + w * 4))[lane];
                     a = (uint64_t)v.x | ((uint64_t)v.y << 32);
                 }
-                a = keccak_f_warp(a, lane);
+                a = keccak_f_warp(a, warp_lane(lane));
                 if (lane < 4) {
                     const uint2 d = make_uint2((uint32_t)a, (uint32_t)(a >> 32));
                     ((uint2*)(out + w * 2))[lane] = d;
@@ -305,9 +325,14 @@ merkle_ladder_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
 // ends one word short of a block, a fresh block when it ends on one).
 //
 // - `keccak256_chain_kernel`: d1 = keccak256(words), d_{i+1} = keccak256(d_i).
-//   A chain is serial: one warp, one state lane a thread (`keccak_f_warp`),
-//   the next block's 17 lanes loaded while the current block permutes. The
-//   longest call of a proof absorbs the opened values, about 310 blocks.
+//   A chain is serial, so its bound is latency: n/34 + k keccak-f one
+//   after another, each 24 rounds of 5 dependent instructions in the
+//   function's shortest graph (KECCAK_F_DEPTH in chip_smoke.py) at the
+//   card's latency of a dependent instruction. One warp, one state lane a thread
+//   (`keccak_f_warp`: three shuffle stages a round, no branch, unrolled),
+//   the next block's 17 lanes loaded while the current block permutes.
+//   The longest call of a proof absorbs the opened values, about 310
+//   blocks.
 // - `keccak_grind_kernel`: the proof-of-work search, see below.
 
 constexpr int RATE_WORDS = 34;
@@ -337,13 +362,14 @@ __global__ void __launch_bounds__(32)
 keccak256_chain_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ out,
                        long long n, int k) {
     const int lane = threadIdx.x;
+    const WarpLane wl = warp_lane(lane);
     const long long nb = n / RATE_WORDS + 1;
     uint64_t a = 0;
     uint64_t next = lane < RATE ? rate_lane(words, n, nb, 0, lane, -1, 0) : 0;
     for (long long b = 0; b < nb; ++b) {
         a ^= next;
         if (lane < RATE && b + 1 < nb) next = rate_lane(words, n, nb, b + 1, lane, -1, 0);
-        a = keccak_f_warp(a, lane);
+        a = keccak_f_warp(a, wl);
     }
     for (int j = 0; j < k; ++j) {
         if (lane < 4) {
@@ -357,7 +383,7 @@ keccak256_chain_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict_
             a = lane < 4 ? a : 0;
             if (lane == 4) a = 1;
             if (lane == 16) a = 0x8000000000000000ULL;
-            a = keccak_f_warp(a, lane);
+            a = keccak_f_warp(a, wl);
         }
     }
 }
@@ -388,10 +414,11 @@ keccak_grind_kernel(const uint32_t* __restrict__ words, long long m, uint32_t ma
     const int ntail = (int)(nb - wb);  // 2 when the 0x01 pad opens a block
     const int t = threadIdx.x;
     if (t < 32) {
+        const WarpLane wl = warp_lane(t);
         uint64_t a = 0;
         for (long long b = 0; b < wb; ++b) {
             if (t < RATE) a ^= rate_lane(words, n, nb, b, t, m, 0);
-            a = keccak_f_warp(a, t);
+            a = keccak_f_warp(a, wl);
         }
         if (t < 25) pre[t] = a;
         if (t < RATE)

@@ -18,20 +18,52 @@
 // s-box on lane 0, then sum + V_i·s_i, monty-31/src/poseidon2.rs:77-90),
 // 4 external rounds. State words are Montgomery-form u32 in [0, p); a
 // product is a 64-bit product and its Montgomery reduction, an add a
-// conditional subtraction. The table (hashes/poseidon2_cuda.py::kernel_table)
-// holds the round constants and the diagonal in Montgomery form and is
-// staged in shared memory.
+// conditional subtraction. Every result is the canonical field element,
+// so any order of exact field operations gives the same bits. The table
+// (hashes/poseidon2_cuda.py::kernel_table) holds the round constants and
+// the diagonal in Montgomery form, then the chain's internal-round tables.
 //
-// Bound: integer operations, and for the chain latency. A permutation is
-// 8 external and 23 internal rounds of dependent field ops: about 5,550
-// ALU and 2,950 multiply instructions (the derivation is next to
-// POSEIDON2_24_ALU in chip_smoke.py). The chain is serial by definition
-// (each block absorbs into the state the previous block left): one thread
-// holds the 24 lanes in registers for the whole absorb, and prefetches the
-// next block's words while it permutes, so device memory sees each word
-// once. The grind runs one candidate a thread, from the staged base state
-// in shared memory; threads stop at their first pass (atomicMin) or at
-// their first candidate above the best found so far.
+// The chain (`duplex_chain_kernel`) is serial by definition: each block
+// absorbs into the state the previous block left. Its bound is latency:
+// the depth of the function's shortest dependency graph, 402 dependent
+// 32-bit instructions a permutation (POSEIDON2_24_DEPTH in chip_smoke.py,
+// 392 each after the first in a chain), times the card's latency of a
+// dependent instruction. This kernel's own graph is 574 deep before its
+// shuffles: M4, the position sum and its add (7 adds a layer, where 6
+// suffice), each round constant's add on the path, and lane 0's product
+// by V_0 where V_0 = -2 makes it a subtraction. One
+// thread holding all 24 words would issue some 8,500 instructions a
+// permutation, 31 lanes idle beside each. The design is one warp a
+// chain, lane i < 24 holding state word i, so a round issues one
+// instruction where a thread would issue 24:
+// - an external round: each lane adds its constant and cubes its word;
+//   M4 inside each group of four lanes as out_k = (x0+x1+x2+x3) + x_k +
+//   2·x_{k+1} (M4 is circulant), from five shuffles; then each lane adds
+//   the sum of its position over the six groups, six shuffles and a
+//   tree of adds. Two dependent shuffle stages a layer.
+// - the internal rounds carry no warp reduction on their critical path.
+//   For i >= 1 the update x_i' = S + d_i·x_i is linear, so
+//   Q_k = sum_{i>=1} d_i^k·x_i follows Q_k' = c_k·S + Q_{k+1} with
+//   c_k = sum_{i>=1} d_i^k. When the internal rounds start, lane i forms
+//   d_i^k·x_i for k = 0..22 and a reduce-scatter over the warp (31
+//   shuffles) leaves Q_k in lane k. A round then is lane 0's s-box and
+//   S = s + Q_0, one broadcast of S, and in every lane x' = S + d·x (lane
+//   0: S + d_0·s) and Q' = c·S + (the next lane's Q); the shift of Q runs
+//   a round ahead of its use, off lane 0's path. Exact field arithmetic,
+//   the same bits as the sum. (Summing the 24 words by two redux.sync a
+//   round instead took 10% longer.)
+// - adds and products are written for latency: a + b reduced by an
+//   unsigned min with a + b - p (two instructions), a Montgomery product
+//   as REDC with -p^-1, whose add rides in the second wide multiply.
+// - rounds are unrolled; the round constants sit in shared memory, each
+//   read a round before its use.
+// - the next block's words are loaded into registers (lane i < 16: word
+//   i) a whole permutation before they are absorbed, so device memory
+//   sees each word once and its latency hides under the permutation.
+// The grind (`duplex_grind_kernel`) is throughput work: one candidate a
+// thread, each running the whole-state permutation `permute` from the
+// staged base state in shared memory; threads stop at their first pass
+// (atomicMin) or at their first candidate above the best found so far.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -42,33 +74,40 @@ constexpr int WIDTH = 24;
 constexpr int RATE = 16;
 constexpr int HALF_FULL = 4;
 constexpr int PARTIAL = 23;
-// the constant table: rc_ei (4 x 24), rc_int (23), rc_ef (4 x 24), diag (24)
+// the constant table: rc_ei (4 x 24), rc_int (23), rc_ef (4 x 24), diag (24),
+// then the chain's: d_i^k (23 x 24, row k; 0 in column 0), c_k (24, c_23 = 0)
 constexpr int OFF_EI = 0;
 constexpr int OFF_INT = HALF_FULL * WIDTH;
 constexpr int OFF_EF = OFF_INT + PARTIAL;
 constexpr int OFF_DIAG = OFF_EF + HALF_FULL * WIDTH;
 constexpr int TABLE = OFF_DIAG + WIDTH;
+constexpr int OFF_POW = TABLE;
+constexpr int OFF_CSUM = OFF_POW + PARTIAL * WIDTH;
 constexpr int GRIND_THREADS = 128;
+constexpr unsigned ALL = 0xffffffffu;
 
 struct Field {
-    uint32_t p;   // the prime, < 2^31
-    uint32_t mu;  // p^-1 mod 2^32
-    uint32_t r2;  // 2^64 mod p: mmul(x, r2) is x's Montgomery form
+    uint32_t p;    // the prime, < 2^31
+    uint32_t nmu;  // -p^-1 mod 2^32
+    uint32_t r2;   // 2^64 mod p: mmul(x, r2) is x's Montgomery form
 };
 
+// a + b mod p for a, b < p < 2^31: s - p wraps above s unless s >= p, so
+// the unsigned min is the reduced sum: an add and a fused add-min, two
+// dependent instructions (a compare and a select would make four).
 __device__ __forceinline__ uint32_t madd(uint32_t a, uint32_t b, uint32_t p) {
     const uint32_t s = a + b;
-    return s >= p ? s - p : s;
+    return min(s, s - p);
 }
 
-// a·b·2^-32 mod p for a, b < p: t = lo(ab)·p^-1 makes t·p agree with ab in
-// the low word, so ab - t·p = (hi(ab) - hi(t·p))·2^32 exactly.
+// a·b·2^-32 mod p for a, b < p: t = lo(ab)·(-p^-1) makes ab + t·p a
+// multiple of 2^32 below 2^64, and r = (ab + t·p)/2^32 lies in [0, 2p):
+// three multiplies (the add rides in the second wide one) and a min.
 __device__ __forceinline__ uint32_t mmul(uint32_t a, uint32_t b, Field f) {
     const uint64_t x = (uint64_t)a * b;
-    const uint32_t t = (uint32_t)x * f.mu;
-    const uint64_t u = (uint64_t)t * f.p;
-    const uint32_t hi = (uint32_t)(x >> 32), uhi = (uint32_t)(u >> 32);
-    return hi >= uhi ? hi - uhi : hi - uhi + f.p;
+    const uint32_t t = (uint32_t)x * f.nmu;
+    const uint32_t r = (uint32_t)(((uint64_t)t * f.p + x) >> 32);
+    return min(r, r - f.p);
 }
 
 __device__ __forceinline__ uint32_t sbox(uint32_t x, Field f) {
@@ -125,7 +164,8 @@ __device__ __forceinline__ void internal_round(uint32_t (&st)[WIDTH], uint32_t r
     for (int i = 0; i < WIDTH; ++i) st[i] = madd(sum, mmul(st[i], diag[i], f), f.p);
 }
 
-// c: the constant table (in shared memory)
+// The whole-state permutation in one thread (the grind's); c: the constant
+// table in shared memory.
 __device__ void permute(uint32_t (&st)[WIDTH], const uint32_t* c, Field f) {
     mds_light(st, f.p);
 #pragma unroll 1
@@ -139,53 +179,155 @@ __device__ void permute(uint32_t (&st)[WIDTH], const uint32_t* c, Field f) {
     for (int r = 0; r < HALF_FULL; ++r) external_round(st, c + OFF_EF + r * WIDTH, f);
 }
 
+// ---- The warp permutation: lane i < 24 holds state word i ----
+//
+// Lanes 24..31 compute on words no lane < 24 reads: every shuffle source
+// below is a lane < 24. Their constants are 0.
+
+// One lane's constants, loaded once a launch.
+struct WarpConsts {
+    uint32_t pow_diag[PARTIAL];  // d_i^k (0 in lane 0 and lanes >= 24)
+    uint32_t diag;               // d_i
+    uint32_t c_lane;             // c_i: the shift register's constant
+    int group, next, pos;        // the lane's group of four, x_{k+1}'s lane, k
+};
+
+// The round constants in shared memory, each row with a spare one after
+// it: a round reads the next round's constant while it runs.
+struct WarpTables {
+    uint32_t rc_ext[2 * HALF_FULL + 1][32];  // [round][lane], 0 in lanes >= 24
+    uint32_t rc_int[PARTIAL + 1];
+};
+
+__device__ __forceinline__ void load_consts(WarpConsts& c, WarpTables& s,
+                                            const uint32_t* __restrict__ t, int lane) {
+    const bool word = lane < WIDTH;
+#pragma unroll
+    for (int r = 0; r < HALF_FULL; ++r) {
+        s.rc_ext[r][lane] = word ? t[OFF_EI + r * WIDTH + lane] : 0u;
+        s.rc_ext[HALF_FULL + r][lane] = word ? t[OFF_EF + r * WIDTH + lane] : 0u;
+    }
+    s.rc_ext[2 * HALF_FULL][lane] = 0u;
+    if (lane <= PARTIAL) s.rc_int[lane] = lane < PARTIAL ? t[OFF_INT + lane] : 0u;
+#pragma unroll
+    for (int k = 0; k < PARTIAL; ++k) c.pow_diag[k] = word ? t[OFF_POW + k * WIDTH + lane] : 0u;
+    c.diag = word ? t[OFF_DIAG + lane] : 0u;
+    c.c_lane = word ? t[OFF_CSUM + lane] : 0u;
+    c.pos = lane & 3;
+    c.group = lane & ~3;
+    c.next = c.group | ((lane + 1) & 3);
+}
+
+// The external layer on the lane's word.
+__device__ __forceinline__ uint32_t layer_warp(uint32_t x, const WarpConsts& c, uint32_t p) {
+    const uint32_t a0 = __shfl_sync(ALL, x, c.group), a1 = __shfl_sync(ALL, x, c.group + 1),
+                   a2 = __shfl_sync(ALL, x, c.group + 2), a3 = __shfl_sync(ALL, x, c.group + 3),
+                   y = __shfl_sync(ALL, x, c.next);
+    const uint32_t o = madd(madd(madd(a0, a1, p), madd(a2, a3, p), p),
+                            madd(madd(x, y, p), y, p), p);
+    uint32_t q[6];
+#pragma unroll
+    for (int g = 0; g < 6; ++g) q[g] = __shfl_sync(ALL, o, 4 * g + c.pos);
+    const uint32_t s = madd(madd(madd(q[0], q[1], p), madd(q[2], q[3], p), p),
+                            madd(q[4], q[5], p), p);
+    return madd(o, s, p);
+}
+
+// HALF_FULL external rounds from row r0 of the constants.
+__device__ __forceinline__ uint32_t external_warp(uint32_t x, const WarpTables& s, int r0,
+                                                  const WarpConsts& c, int lane, Field f) {
+    uint32_t k = s.rc_ext[r0][lane];
+#pragma unroll
+    for (int r = r0; r < r0 + HALF_FULL; ++r) {
+        const uint32_t kr = k;
+        k = s.rc_ext[r + 1][lane];
+        x = layer_warp(sbox(madd(x, kr, f.p), f), c, f.p);
+    }
+    return x;
+}
+
+// One step of the reduce-scatter over v[0..2·O): a lane keeps the half of
+// the indices whose bit O matches its own and adds the partner's copy.
+template <int O>
+__device__ __forceinline__ void scatter_step(uint32_t (&v)[32], int lane, uint32_t p) {
+    const bool up = lane & O;
+#pragma unroll
+    for (int j = 0; j < O; ++j) {
+        const uint32_t keep = up ? v[O + j] : v[j], send = up ? v[j] : v[O + j];
+        v[j] = madd(keep, __shfl_xor_sync(ALL, send, O), p);
+    }
+}
+
+// The 23 internal rounds (see the note at the top); returns the lane's word.
+__device__ __forceinline__ uint32_t internal_warp(uint32_t x, const WarpTables& st,
+                                                  const WarpConsts& c, int lane, Field f) {
+    const uint32_t p = f.p;
+    // reduce-scatter of v[k] = d_i^k·x_i: lane k ends with Q_k (k < 23; 0
+    // above)
+    uint32_t v[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) v[k] = k < PARTIAL ? mmul(c.pow_diag[k], x, f) : 0u;
+    scatter_step<16>(v, lane, p);
+    scatter_step<8>(v, lane, p);
+    scatter_step<4>(v, lane, p);
+    scatter_step<2>(v, lane, p);
+    scatter_step<1>(v, lane, p);
+    uint32_t q = v[0];  // Q_lane
+    uint32_t k = st.rc_int[0];
+#pragma unroll
+    for (int r = 0; r < PARTIAL; ++r) {
+        const uint32_t kr = k;
+        k = st.rc_int[r + 1];
+        const uint32_t s = sbox(madd(x, kr, p), f);  // lane 0: s_r
+        const uint32_t S = madd(s, q, p);            // lane 0: S_r = s_r + Q_0
+        const uint32_t qn = __shfl_down_sync(ALL, q, 1), Sb = __shfl_sync(ALL, S, 0);
+        // lane 0 takes its own S and s: x_0' = S + d_0·s
+        const uint32_t Su = lane == 0 ? S : Sb, y = lane == 0 ? s : x;
+        x = madd(Su, mmul(c.diag, y, f), p);
+        q = madd(mmul(c.c_lane, Su, f), qn, p);  // Q_lane' = c_lane·S + Q_{lane+1}
+    }
+    return x;
+}
+
+__device__ __forceinline__ uint32_t permute_warp(uint32_t x, const WarpTables& s,
+                                                 const WarpConsts& c, int lane, Field f) {
+    x = layer_warp(x, c, f.p);
+    x = external_warp(x, s, 0, c, lane, f);
+    x = internal_warp(x, s, c, lane, f);
+    return external_warp(x, s, HALF_FULL, c, lane, f);
+}
+
 // The state after absorbing n words (duplex_challenger.rs:92-117): blocks of
 // RATE words, the last one of k = n - RATE·(nb - 1) words; a block of k > 0
 // words overwrites lanes 0..k-1, zeroes lanes k..RATE-1 and adds k to lane
 // RATE, then the state is permuted. n = 0 is one bare permutation (a
-// duplexing with an empty input buffer). One thread of the warp computes;
-// the warp stages the table.
+// duplexing with an empty input buffer). One warp, lane i < 24 state word i.
 __global__ void __launch_bounds__(32)
 duplex_chain_kernel(const uint32_t* __restrict__ state, const uint32_t* __restrict__ words,
                     long long n, uint32_t* __restrict__ out,
                     const uint32_t* __restrict__ table, Field f) {
-    __shared__ uint32_t c[TABLE];
-    for (int i = threadIdx.x; i < TABLE; i += 32) c[i] = table[i];
-    __syncthreads();
-    if (threadIdx.x != 0) return;
-    uint32_t st[WIDTH];
-#pragma unroll
-    for (int i = 0; i < WIDTH; ++i) st[i] = state[i];
+    __shared__ WarpTables s;
+    const int lane = threadIdx.x;
+    WarpConsts c;
+    load_consts(c, s, table, lane);
+    __syncwarp();
+    uint32_t x = lane < WIDTH ? state[lane] : 0u;
     const long long nb = n > 0 ? (n + RATE - 1) / RATE : 1;
-    uint32_t nxt[RATE];
-#pragma unroll
-    for (int i = 0; i < RATE; ++i) {
-        uint32_t v = 0;
-        if (i < n) v = words[i];
-        nxt[i] = v;
-    }
+    uint32_t nxt = lane < RATE && lane < n ? words[lane] : 0u;
     for (long long b = 0; b < nb; ++b) {
         const long long left = n - b * RATE;
         const int k = left < RATE ? (int)left : RATE;
         if (k > 0) {
-#pragma unroll
-            for (int i = 0; i < RATE; ++i) st[i] = nxt[i];
-            st[RATE] = madd(st[RATE], mmul((uint32_t)k, f.r2, f), f.p);
+            if (lane < RATE) x = nxt;
+            if (lane == RATE) x = madd(x, mmul((uint32_t)k, f.r2, f), f.p);
         }
-        if (b + 1 < nb) {  // the next block's words, loaded during the permutation
-            const uint32_t* w = words + (b + 1) * RATE;
-            const long long next_left = left - RATE;
-#pragma unroll
-            for (int i = 0; i < RATE; ++i) {
-                uint32_t v = 0;
-                if (i < next_left) v = w[i];
-                nxt[i] = v;
-            }
+        if (b + 1 < nb) {  // the next block's word, loaded during the permutation
+            const long long i = (b + 1) * RATE + lane;
+            nxt = lane < RATE && i < n ? words[i] : 0u;
         }
-        permute(st, c, f);
+        x = permute_warp(x, s, c, lane, f);
     }
-#pragma unroll
-    for (int i = 0; i < WIDTH; ++i) out[i] = st[i];
+    if (lane < WIDTH) out[lane] = x;
 }
 
 // The smallest witness w in [0, p) for which the permutation of `base` with
@@ -239,7 +381,7 @@ int poseidon2_duplex_chain(const void* state, const void* words, long long n, vo
     if (n < 0 || !field_ok(p, mu)) return (int)cudaErrorInvalidValue;
     duplex_chain_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)state, (const uint32_t*)words, n, (uint32_t*)out,
-        (const uint32_t*)table, Field{p, mu, r2});
+        (const uint32_t*)table, Field{p, 0u - mu, r2});
     return (int)cudaGetLastError();
 }
 
@@ -255,7 +397,7 @@ int poseidon2_grind(const void* base, int lane, int pow_bits, int threads,
     const uint32_t mask = (1u << pow_bits) - 1;
     duplex_grind_kernel<<<(unsigned)((threads + GRIND_THREADS - 1) / GRIND_THREADS),
                           GRIND_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)base, lane, mask, (const uint32_t*)table, Field{p, mu, r2},
+        (const uint32_t*)base, lane, mask, (const uint32_t*)table, Field{p, 0u - mu, r2},
         (uint32_t*)best);
     return (int)cudaGetLastError();
 }

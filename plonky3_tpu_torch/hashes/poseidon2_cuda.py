@@ -95,15 +95,33 @@ def poseidon2_grind_plain(perm, base, lane, pow_bits):
     return torch.full((1,), -1, dtype=torch.int32, device=base.device)
 
 
+def internal_tables(perm):
+    """The duplex chain's internal-round tables in standard form, (23, 24)
+    and (24,) int64: row k of the first holds d_i^k for lanes i >= 1 (0
+    in lane 0), the second c_k = sum of row k for k < 23 and 0 for k = 23.
+    For i >= 1 an internal round maps x_i to S + d_i·x_i, so
+    Q_k = sum_{i>=1} d_i^k·x_i becomes c_k·S + Q_{k+1}."""
+    P, rounds = perm.F.P, len(perm.rc_internal)
+    pows = np.array([[0] + [pow(d, k, P) for d in perm.diag_std[1:]]
+                     for k in range(rounds)], dtype=np.int64)
+    csum = np.zeros(WIDTH, dtype=np.int64)
+    csum[:rounds] = pows.sum(axis=1) % P
+    return pows, csum
+
+
 def kernel_table(perm, device):
     """The kernels' constant table on `device`: Montgomery-form u32
     words, the external initial round constants (4 × 24), the internal
     ones (23), the external final ones (4 × 24), the internal diagonal
-    (24)."""
+    (24); then the chain's `internal_tables` (23 × 24, 24). The grind
+    reads the first four parts."""
     def make(dev):
         c = perm._device_consts()
+        pows, csum = internal_tables(perm)
+        mont = [perm.F.to_monty_np(t.reshape(-1).astype(np.uint32))
+                for t in (pows, csum)]
         flat = np.concatenate([c["rc_ei"].reshape(-1), c["rc_int"],
-                               c["rc_ef"].reshape(-1), c["diag"]])
+                               c["rc_ef"].reshape(-1), c["diag"], *mont])
         return torch.from_numpy(flat.astype(np.int32)).to(dev)
 
     return perm.on_device("kernel", device, make)

@@ -74,17 +74,32 @@ def so_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+def start_nvcc(src, out):
+    """Start nvcc building source `src` into the shared library `out`
+    (ptxas's register report on stdout); returns the process."""
+    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def bind(so, name: str):
+    """Load the library `so` built from a csrc/<name>.cu and give its C
+    entries their signatures."""
+    handle = ctypes.CDLL(str(so))
+    for fn, argtypes in _SIGNATURES[name].items():
+        f = getattr(handle, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return handle
+
+
 def _start_build(name: str):
     """Start nvcc for one source; returns (process, tmp path, target)."""
     so = so_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           str(_CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, so
+    return start_nvcc(_CSRC / f"{name}.cu", tmp), tmp, so
 
 
 def _finish_build(name, proc, tmp, so) -> str:
@@ -118,12 +133,7 @@ def lib(name: str):
     so = so_path(name)
     if not so.exists():
         _finish_build(name, *_start_build(name))
-    handle = ctypes.CDLL(str(so))
-    for fn, argtypes in _SIGNATURES[name].items():
-        f = getattr(handle, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-    _LIBS[name] = handle
+    handle = _LIBS[name] = bind(so, name)
     return handle
 
 

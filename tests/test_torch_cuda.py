@@ -166,6 +166,25 @@ def test_poseidon2_duplex_chain_matches_plain(cuda, n):
                                                             words))
 
 
+@pytest.mark.parametrize("n1,n2", [(17, 15), (10528, 16), (0, 33)])
+def test_poseidon2_duplex_chain_twice_on_one_state(cuda, n1, n2):
+    """Two chains one after the other, the second absorbing into the state
+    the first left, as the transcript calls them."""
+    from plonky3_tpu_torch.hashes import poseidon2_cuda as pc
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+
+    perm = default_poseidon2(F, 24)
+    rng = np.random.default_rng(n1 + n2)
+    state = _words(rng, (24,), F.P, cuda)
+    w1, w2 = _words(rng, (n1,), F.P, cuda), _words(rng, (n2,), F.P, cuda)
+    got = pc.poseidon2_duplex_chain(
+        perm, pc.poseidon2_duplex_chain(perm, state, w1), w2)
+    torch.cuda.synchronize()
+    want = pc.poseidon2_duplex_chain_plain(
+        perm, pc.poseidon2_duplex_chain_plain(perm, state, w1), w2)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("lane,pow_bits", [(0, 1), (5, 2), (15, 12),
                                            (3, 16)])
 def test_poseidon2_grind_matches_plain(cuda, lane, pow_bits):
