@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the transcript's two chain kernels, built from several kernel
-sources, on one card in turns.
+"""Time the transcript's kernels, the two chains and the two
+proof-of-work grinds, built from several kernel sources, on one card in
+turns.
 
     python3 chain_variants.py --keccak A.cu B.cu ... --poseidon2 C.cu D.cu ...
 
@@ -12,38 +13,89 @@ library in turn (it stands in `kernels._LIBS` while it runs), so every
 version is called through the same C entries on the same inputs:
 
 - keccak: `keccak256_chain` at the main path's longest call (10,536
-  words, k = 2), and `keccak_merkle_ladder` over 2^18 digests (the levels
-  near the root run the same warp round);
+  words, k = 2), `keccak_merkle_ladder` over 2^18 digests (the levels
+  near the root run the same warp round), and `keccak_grind` over
+  `chip_smoke.py`'s sweep (16 staged 18-word messages at 16 bits);
 - poseidon2: `poseidon2_duplex_chain` at the Poseidon2 path's longest
-  absorb (10,528 words, 658 blocks), with this checkout's constant table
-  (whose first 239 words are the layout every version reads).
+  absorb (10,528 words, 658 blocks), and `poseidon2_grind` over the
+  sweep (16 staged states, lane 10, 16 bits), with this checkout's
+  constant table (whose first 239 words are the layout every version
+  reads).
+
+A source whose grind entry still takes a thread count (the fixed-grid
+grind that the persistent one replaced) is called with the count its
+wrapper gave it, 2^min(17, pow_bits + 2).
 
 Each output must equal the plain version's at small sizes and the first
-source's at full size. A time is CUDA events around 10 back-to-back
-calls, over 10; the sources are visited forward, then backward, four
-times over (two sources: old, new, new, old, old, new, new, old). Prints
-the card's name and power limit, then one JSON line per kernel with each
-source's times and ptxas's register report; exits nonzero on any
-mismatch. Needs one NVIDIA GPU.
+source's at full size; every grind's witness must equal the plain
+version's. A time is CUDA events around 10 back-to-back calls (a grind's
+call: the whole sweep, one launch a state), over 10, after the stream
+sleeps while the host queues them; the sources are visited forward, then
+backward, four times over (two sources: old, new, new, old, old, new,
+new, old). Prints the card's name and power limit, then one JSON line
+per kernel with each source's times, ptxas's register report and, for a
+grind, the kernel's SASS counts and its share of the sweep's summed
+bound (`chip_smoke.grind_bound`, `p2_grind_bound`); exits nonzero on
+any mismatch. Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
+import re
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
+import chip_smoke as cs
+
 ROUNDS = 4
 LAUNCHES = 10
+# where a thread-count grind entry takes its count, by library
+THREADS_AT = {"keccak": 4, "poseidon2": 3}
+GRIND_KERNEL = {"keccak": "keccak_grind_kernel",
+                "poseidon2": "duplex_grind_kernel"}
+
+
+class ThreadCountGrind:
+    """A library whose grind entry takes a thread count after its first
+    arguments: stands in for the library, inserting the count that the
+    entry's wrapper gave it, 2^min(17, pow_bits + 2)."""
+
+    def __init__(self, lib, name):
+        from plonky3_tpu_torch import kernels
+
+        self._lib, self._fn, self._at = lib, f"{name}_grind", THREADS_AT[name]
+        argtypes = list(kernels._SIGNATURES[name][self._fn])
+        argtypes.insert(self._at, ctypes.c_int)
+        getattr(lib, self._fn).argtypes = argtypes
+
+    def __getattr__(self, fn):
+        f = getattr(self._lib, fn)
+        if fn != self._fn:
+            return f
+
+        def call(*args):
+            a = list(args)
+            a.insert(self._at, 1 << min(17, args[2] + 2))
+            return f(*a)
+
+        return call
+
+
+def takes_thread_count(src, name):
+    """Whether the grind entry of source `src` takes a thread count."""
+    m = re.search(rf"int {name}_grind\(([^)]*)\)", Path(src).read_text())
+    return m is not None and "threads" in m.group(1)
 
 
 def build(sources, name):
-    """{source: (ctypes library, ptxas lines)}, every nvcc run at once,
-    with the flags and C signatures of `plonky3_tpu_torch.kernels`."""
+    """{source: (ctypes library, ptxas lines, the grind's SASS counts)},
+    every nvcc run at once, with the flags and C signatures of
+    `plonky3_tpu_torch.kernels`."""
     from plonky3_tpu_torch import kernels
 
     out_dir = kernels.BUILD_DIR / "variants"
@@ -60,7 +112,11 @@ def build(sources, name):
             raise RuntimeError(f"nvcc failed for {src}:\n{text}")
         regs = [ln.split(":", 1)[-1].strip() for ln in text.splitlines()
                 if "registers" in ln or "entry function" in ln]
-        libs[src] = (kernels.bind(so, name), regs)
+        lib = kernels.bind(so, name)
+        if takes_thread_count(src, name):
+            lib = ThreadCountGrind(lib, name)
+        libs[src] = (lib, regs, cs.sass_counts(so, {
+            "grind": GRIND_KERNEL[name]}).get("grind"))
     return libs
 
 
@@ -73,31 +129,57 @@ def timed_turns(torch, kernels, name, libs, fn):
     for r in range(ROUNDS):
         for k in (keys if r % 2 == 0 else keys[::-1]):
             kernels._LIBS[name] = libs[k][0]
-            fn()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(LAUNCHES):
-                fn()
-            end.record()
-            end.synchronize()
-            times[k].append(start.elapsed_time(end) / LAUNCHES)
+            times[k].append(cs.events_ms(torch, fn, LAUNCHES))
     return times
 
 
 def each(kernels, name, libs):
     """Yield each source with its library standing in for csrc/<name>.cu."""
-    for src, (lib, _) in libs.items():
+    for src, (lib, *_) in libs.items():
         kernels._LIBS[name] = lib
         yield src
 
 
-def report(kernel, shape, libs, times):
-    print(json.dumps({"kernel": kernel, "shape": shape, "sources": [
-        {"source": str(src), "ms": times[src],
-         "median_ms": statistics.median(times[src]), "ptxas": libs[src][1]}
-        for src in libs]}), flush=True)
+def report(kernel, shape, libs, times, bound_ms=None, each_ms=None):
+    """One JSON line: each source's times, median and ptxas lines; with
+    `bound_ms` and `each_ms` (a grind's sweep), its share of the bound,
+    each state's time and its SASS counts."""
+    rows = []
+    for src in libs:
+        row = {"source": str(src), "ms": times[src],
+               "median_ms": statistics.median(times[src]),
+               "ptxas": libs[src][1]}
+        if bound_ms is not None:
+            row.update(sweep_share=bound_ms / row["median_ms"],
+                       each_ms=each_ms[src], sass=libs[src][2])
+        rows.append(row)
+    line = {"kernel": kernel, "shape": shape, "sources": rows}
+    if bound_ms is not None:
+        line["sweep_bound_ms"] = bound_ms
+    print(json.dumps(line), flush=True)
+
+
+def grind_turns(torch, kernels, name, libs, grind, plain, bound, cases,
+                states):
+    """Each source's grind (grind(x, pow_bits)) against the plain version
+    at `cases` (x, pow_bits) and over the sweep's `states`, then the sweep
+    in turns; returns (times, {source: each state's ms, once}, the sweep's
+    summed bound(witness))."""
+    for x, bits in cases:
+        want = plain(x, bits)
+        for src in each(kernels, name, libs):
+            check(f"{src} grind, {bits} bits", grind(x, bits), want)
+    total = 0.0
+    for x in states:
+        want = plain(x, cs.SWEEP_BITS)
+        total += bound(int(want[0]))[0]
+        for src in each(kernels, name, libs):
+            check(f"{src} sweep", grind(x, cs.SWEEP_BITS), want)
+    times = timed_turns(torch, kernels, name, libs, lambda: [
+        grind(x, cs.SWEEP_BITS) for x in states])
+    each_ms = {src: [cs.events_ms(torch, lambda: grind(x, cs.SWEEP_BITS))
+                     for x in states] for src in each(kernels, name, libs)}
+    return times, each_ms, total
 
 
 def check(what, got, want):
@@ -108,8 +190,14 @@ def check(what, got, want):
         raise AssertionError(f"{what}: outputs differ")
 
 
+def card_of(torch):
+    """What the grinds' bounds read of the card: its integer peak."""
+    return cs.Card(cs.int_peak(torch)[0], 0.0)
+
+
 def run_keccak(torch, np, sources):
     from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.fields import KoalaBear as F
     from plonky3_tpu_torch.hashes import keccak_cuda as kc
 
     libs = build(sources, "keccak")
@@ -141,6 +229,17 @@ def run_keccak(torch, np, sources):
         torch, kernels, "keccak", libs, lambda: kc.keccak256_chain(w, 2)))
     report("keccak_ladder", [1 << 18, 8], libs, timed_turns(
         torch, kernels, "keccak", libs, lambda: kc.keccak_merkle_ladder(d)))
+    card = card_of(torch)
+    times, each_ms, bound = grind_turns(
+        torch, kernels, "keccak", libs,
+        lambda x, bits: kc.keccak_grind(x, bits, F.P),
+        lambda x, bits: kc.keccak_grind_plain(x, bits, F.P),
+        lambda w: cs.grind_bound(card, cs.GRIND_WORDS, w),
+        [(words((m,)), bits) for m, bits in ((18, 1), (33, 4), (40, 8))],
+        [torch.from_numpy(x).to(torch.int32).cuda()
+         for x in cs.sweep_states(np, F.P)[0]])
+    report("keccak_grind", [cs.SWEEP_STATES, cs.GRIND_WORDS, cs.SWEEP_BITS],
+           libs, times, bound, each_ms)
 
 
 def run_poseidon2(torch, np, sources):
@@ -173,6 +272,18 @@ def run_poseidon2(torch, np, sources):
     report("poseidon2_duplex_chain", [n, -(-n // 16)], libs, timed_turns(
         torch, kernels, "poseidon2", libs,
         lambda: pc.poseidon2_duplex_chain(perm, state, w)))
+    card = card_of(torch)
+    times, each_ms, bound = grind_turns(
+        torch, kernels, "poseidon2", libs,
+        lambda x, bits: pc.poseidon2_grind(perm, *x, bits),
+        lambda x, bits: pc.poseidon2_grind_plain(perm, *x, bits),
+        lambda w: cs.p2_grind_bound(card, w),
+        [((words(24), lane), bits) for lane, bits in ((0, 1), (15, 4),
+                                                       (3, 8))],
+        [(torch.from_numpy(x).to(torch.int32).cuda(), cs.GRIND_LANE)
+         for x in cs.sweep_states(np, F.P)[1]])
+    report("poseidon2_grind", [cs.SWEEP_STATES, cs.GRIND_LANE,
+                               cs.SWEEP_BITS], libs, times, bound, each_ms)
 
 
 def main(argv=None) -> int:
@@ -186,9 +297,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chain_variants: no CUDA device is available", file=sys.stderr)
         return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
+    print(cs.card_name(), flush=True)
     if args.keccak:
         run_keccak(torch, np, args.keccak)
     if args.poseidon2:

@@ -34,7 +34,10 @@ Phases, each printed as one JSON line:
            transcript's: the duplex chain at 0, 1 and 2 blocks, at partial
            last blocks and at its longest call on the Poseidon2 path
            (10,528 words, 658 blocks), the grind at 1 to 16 bits from two
-           staged states. Kernel times are device time under
+           staged states. Each grind also runs over a sweep of 16 staged
+           states at 16 bits, each witness checked and each state timed
+           by CUDA events and bounded (`sweep_ms`, `sweep_share`).
+           Kernel times are device time under
            torch.profiler (`ms`), CUDA events around the call beside it
            (`wall_ms`);
   mixed    a commit of mixed-height matrices (injection levels through
@@ -128,8 +131,13 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-# torch.profiler passes over a tagged profile that misses launches
+# torch.profiler passes over a tagged profile that misses launches or
+# disagrees with CUDA events, and how far short of the events a profile
+# may fall: a share of their time, and the gap and side work (a fill of
+# the grinds' result word) around each launch
 PROFILE_TRIES = 2
+PROFILE_SLACK = 0.1
+PROFILE_GAP_MS = 0.005
 
 
 def _profile(torch, fn):
@@ -158,23 +166,29 @@ def profiled_ms(torch, fn, reps: int, tag: str = ""):
 
     With a tag, the kernels named are the port's own, and the profile
     must record as many of them as the wrappers launched
-    (`kernels.LAUNCHES`); one that did not is taken again, up to
+    (`kernels.LAUNCHES`) and agree with `events_ms` of the same runs: the
+    events bracket every run, so the device time of the tagged kernels
+    can fall short of theirs only by the gaps between launches and the
+    other work of a run (PROFILE_SLACK of the events' time and
+    PROFILE_GAP_MS a launch). A profile that misses launches or falls
+    further short has lost or cut records, and is taken again, up to
     PROFILE_TRIES times. `source` says what the time is: "profiler" (every
     launch recorded), "profiler_mean" (the mean recorded launch times the
     launches a run: a device time, but from fewer launches) or "events"
-    (none recorded: CUDA events around the runs, back to back, host gaps
-    included). Every short profile is listed in PROFILE_SHORT."""
+    (no profile agreed: `events_ms`, the launches' gaps included). Every
+    profile refused is listed in PROFILE_SHORT."""
     from torch.autograd import DeviceType
 
     from plonky3_tpu_torch import kernels
 
-    fn()
+    ev_ms = events_ms(torch, fn, reps)
     torch.cuda.synchronize()
 
     def runs():
         for _ in range(reps):
             fn()
 
+    mean = None
     for _ in range(PROFILE_TRIES):
         before = sum(kernels.LAUNCHES.values())
         prof = _profile(torch, runs)
@@ -183,22 +197,25 @@ def profiled_ms(torch, fn, reps: int, tag: str = ""):
                if ev.device_type == DeviceType.CUDA and tag in ev.key]
         us = sum(ev.self_device_time_total for ev in evs)
         recorded = sum(ev.count for ev in evs)
-        if not tag or recorded == launched:
+        if not tag:
             return us / 1e3 / reps, "profiler"
+        ms = us / recorded * launched / 1e3 / reps if recorded else 0.0
+        agrees = ev_ms - ms <= (PROFILE_SLACK * ev_ms
+                                + PROFILE_GAP_MS * launched / reps)
+        if recorded == launched and agrees:
+            return ms, "profiler"
+        if recorded and agrees:
+            mean = ms
         PROFILE_SHORT.append({"tag": tag, "recorded": recorded,
-                              "launched": launched})
-    if recorded:
-        return us / recorded * launched / 1e3 / reps, "profiler_mean"
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    runs()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, "events"
+                              "launched": launched, "ms": ms,
+                              "events_ms": ev_ms})
+    if mean is not None:
+        return mean, "profiler_mean"
+    return ev_ms, "events"
 
 
-# every tagged profile that missed launches, retries included
+# every tagged profile refused (missed launches or fell short of the
+# events), retries included
 PROFILE_SHORT = []
 
 
@@ -322,8 +339,10 @@ POSEIDON2_24_MUL = 3 * P2_PRODUCTS
 # csrc/poseidon2.cu keeps ready off the path): 10. The layer once, 8
 # external rounds, 23 internal: 402.
 POSEIDON2_24_DEPTH = 12 + 8 * (8 + 12) + 23 * (8 + 2)
-P2_TABLE_WORDS = 4 * 24 + 23 + 4 * 24 + 24  # the grind's constant table
-P2_CHAIN_TABLE_WORDS = P2_TABLE_WORDS + 23 * 24 + 24  # the chain's
+P2_RC_WORDS = 4 * 24 + 23 + 4 * 24  # the round constants
+# the grind's table: the round constants, the diagonal and its Shoup quotients
+P2_TABLE_WORDS = P2_RC_WORDS + 2 * 24
+P2_CHAIN_TABLE_WORDS = P2_RC_WORDS + 24 + 23 * 24 + 24  # the chain's
 
 
 def p2_chain_depth(n):
@@ -372,6 +391,71 @@ def grind_bound(card, m, w):
     tail = 2 if (m + 1) % 34 == 0 else 1
     return bound_ms(card, 4 * m + 4,
                     (m // 34 + tail * (w + 1)) * KECCAK_F_ALU)
+
+
+# The grinds' yardstick. A 16-bit witness is geometric with mean 2^16, so
+# one witness says little of what a proof pays: each grind also runs over
+# SWEEP_STATES staged states from np.random.default_rng(SWEEP_SEED) at
+# SWEEP_BITS bits, keccak at the main path's message of GRIND_WORDS words,
+# Poseidon2 at GRIND_LANE, the witness's lane at the Poseidon2 path's query
+# grind (after the final polynomial's 4 words and the 6 arities).
+SWEEP_SEED = 9
+SWEEP_STATES = 16
+SWEEP_BITS = 16
+GRIND_WORDS = 18
+GRIND_LANE = 10
+# clock cycles the stream sleeps before a timed run of launches (about 2 ms
+# at the H100's clock), while the host queues them
+SLEEP_CYCLES = 1 << 22
+
+
+def sweep_states(np, P):
+    """The sweep's staged states, int64 arrays: SWEEP_STATES keccak
+    messages of GRIND_WORDS u32 words and as many width-24 Poseidon2
+    states of Montgomery words below P."""
+    rng = np.random.default_rng(SWEEP_SEED)
+    words = rng.integers(0, 1 << 32, (SWEEP_STATES, GRIND_WORDS),
+                         dtype=np.uint64)
+    states = rng.integers(0, P, (SWEEP_STATES, 24), dtype=np.uint64)
+    return words.astype(np.int64), states.astype(np.int64)
+
+
+def events_ms(torch, fn, launches: int = 10) -> float:
+    """Milliseconds of one fn() by CUDA events around `launches` runs back
+    to back, after one warm-up. The stream sleeps first while the host
+    queues the runs, so the time is the device's, host gaps left out."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def grind_sweep(torch, what, grind, plain, bound, states):
+    """A grind over the sweep's staged states: each witness held against
+    the plain version's, each state timed by `events_ms` and bounded by
+    `bound(witness)`. The record's sweep keys: the witnesses, the times,
+    `sweep_ms` (their sum) and `sweep_share` (the bounds' sum over it)."""
+    witnesses, times, bounds = [], [], []
+    for st in states:
+        got = grind(st)
+        compare(f"{what} sweep", got, plain(st))
+        w = int(got[0])
+        ms = events_ms(torch, lambda: grind(st))
+        b = bound(w)[0]
+        share(f"{what} sweep, witness {w}", b, ms)
+        witnesses.append(w)
+        times.append(ms)
+        bounds.append(b)
+    return {"sweep_witnesses": witnesses, "sweep_each_ms": times,
+            "sweep_ms": sum(times), "sweep_bound_ms": sum(bounds),
+            "sweep_share": share(f"{what} sweep", sum(bounds), sum(times))}
 
 
 class LaunchRecorder:
@@ -453,19 +537,18 @@ def launch_bounds(card, calls, witnesses=()):
     return dict(out)
 
 
-def ntt_sass(kernels):
-    """{k1, k2: static SASS instruction count and the commonest opcodes}
-    of the size-2^9 NTT kernels, the main path's sub-transforms (cuobjdump
-    of the built library). The kernel is unrolled, so the count is about
-    what one thread issues."""
+def sass_counts(so, tags):
+    """{key: static SASS instruction count and the commonest opcodes} of
+    the kernels in library `so` whose mangled names hold tags[key]
+    (cuobjdump of the built library)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(kernels.so_path("ntt"))],
-                          capture_output=True, text=True, check=True).stdout
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
     counts, cur = {}, None
     for line in text.splitlines():
         if "Function :" in line:
             cur = None
-            for key, tag in (("k1", "ILi9ELb1E"), ("k2", "ILi9ELb0E")):
+            for key, tag in tags.items():
                 if tag in line:
                     cur = counts.setdefault(key, collections.Counter())
             continue
@@ -475,6 +558,14 @@ def ntt_sass(kernels):
             cur[op.group(1)] += 1
     return {k: {"total": sum(c.values()), **dict(c.most_common(8))}
             for k, c in sorted(counts.items())}
+
+
+def ntt_sass(kernels):
+    """The SASS counts (`sass_counts`) of the size-2^9 NTT kernels, the
+    main path's sub-transforms. The kernel is unrolled, so the count is
+    about what one thread issues."""
+    return sass_counts(kernels.so_path("ntt"),
+                       {"k1": "ILi9ELb1E", "k2": "ILi9ELb0E"})
 
 
 # the probe's chains: 2^18 steps each
@@ -520,18 +611,29 @@ def latency_probe(torch, kernels, build):
     return lat, rec["one_warp_sm_clock_mhz"], rec
 
 
-def phase_card(torch, kernels):
-    smi = subprocess.run(
+def card_name():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    print(smi, flush=True)
+
+
+def int_peak(torch):
+    """(integer operations a second, the maximum SM clock in MHz, SMs):
+    SMs × 64 lanes × the maximum SM clock."""
     clock_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    peak = sms * INT_LANES_PER_SM * clock_mhz * 1e6
+    return sms * INT_LANES_PER_SM * clock_mhz * 1e6, clock_mhz, sms
+
+
+def phase_card(torch, kernels):
+    smi = card_name()
+    print(smi, flush=True)
+    peak, clock_mhz, sms = int_peak(torch)
     t0 = time.perf_counter()
     probe_build = start_probe_build(kernels)
     try:
@@ -555,7 +657,12 @@ def phase_card(torch, kernels):
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "built": sorted(report), "ptxas": regs,
-          "ntt_sass": ntt_sass(kernels)})
+          "ntt_sass": ntt_sass(kernels),
+          "grind_sass": {
+              **sass_counts(kernels.so_path("keccak"),
+                            {"keccak_grind": "keccak_grind_kernel"}),
+              **sass_counts(kernels.so_path("poseidon2"),
+                            {"poseidon2_grind": "duplex_grind_kernel"})}})
     return Card(peak, lat / (clock_mhz * 1e6))
 
 
@@ -812,7 +919,7 @@ def phase_kernels(torch, np, card):
             err = compare(f"grind {m} {bits}", got, want)
             w = int(got[0])
             rec = {"m": m, "pow_bits": bits, "witness": w, "max_abs_err": err}
-            if (m, bits) == (18, 16):
+            if (m, bits) == (GRIND_WORDS, 16):
                 grind = lambda: kc.keccak_grind(words, 16, F.P)  # noqa: E731
                 ms, ms_src = profiled_ms(torch, grind, 10,
                                          "keccak_grind_kernel")
@@ -830,6 +937,16 @@ def phase_kernels(torch, np, card):
                     bound_ms=b[0], bound_by=b[1], library_ms=None,
                     share=rec["share"], shape=[m, 16], witness=w)
             emit({"phase": "kernels", "kernel": "keccak_grind", **rec})
+    messages = [torch.from_numpy(w).to(torch.int32).cuda()
+                for w in sweep_states(np, F.P)[0]]
+    sweep = grind_sweep(
+        torch, "keccak grind",
+        lambda w: kc.keccak_grind(w, SWEEP_BITS, F.P),
+        lambda w: kc.keccak_grind_plain(w, SWEEP_BITS, F.P),
+        lambda w: grind_bound(card, GRIND_WORDS, w), messages)
+    records["keccak_grind"].update(sweep)
+    emit({"phase": "kernels", "kernel": "keccak_grind", "m": GRIND_WORDS,
+          "pow_bits": SWEEP_BITS, **sweep})
     phase_kernels_poseidon2(torch, np, card, rng, records)
     return records
 
@@ -855,7 +972,8 @@ def phase_kernels_poseidon2(torch, np, card, rng, records):
     """The Poseidon2 duplex transcript's kernels against their plain
     versions: the chain at 0 blocks (a bare permutation), 1 and 2 blocks,
     partial last blocks of 1 and 15 lanes, and the Poseidon2 path's
-    longest absorb; the grind at 1 to 16 bits from two staged states."""
+    longest absorb; the grind at 1 to 16 bits from two staged states and
+    over the sweep's."""
     from plonky3_tpu_torch.fields import KoalaBear as F
     from plonky3_tpu_torch.hashes import poseidon2_cuda as pc
     from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
@@ -893,9 +1011,7 @@ def phase_kernels_poseidon2(torch, np, card, rng, records):
                 shape=[n, nb])
         emit({"phase": "kernels", "kernel": "poseidon2_duplex_chain", **rec})
 
-    # lane 10: the witness's lane at the main path's query grind (after the
-    # final polynomial's 4 words and the 6 arities)
-    for lane in (0, 10):
+    for lane in (0, GRIND_LANE):
         base = _rand_words(torch, rng, (24,), F.P)
         for bits in (1, 4, 8, 12, 16):
             got = pc.poseidon2_grind(perm, base, lane, bits)
@@ -905,7 +1021,7 @@ def phase_kernels_poseidon2(torch, np, card, rng, records):
             w = int(got[0])
             rec = {"lane": lane, "pow_bits": bits, "witness": w,
                    "max_abs_err": err, "plain_ms": plain}
-            if (lane, bits) == (10, 16):
+            if (lane, bits) == (GRIND_LANE, 16):
                 grind = lambda: pc.poseidon2_grind(  # noqa: E731
                     perm, base, lane, 16)
                 ms, ms_src = profiled_ms(torch, grind, 10,
@@ -923,6 +1039,16 @@ def phase_kernels_poseidon2(torch, np, card, rng, records):
                     library_ms=None, share=rec["share"], shape=[lane, 16],
                     witness=w)
             emit({"phase": "kernels", "kernel": "poseidon2_grind", **rec})
+    bases = [torch.from_numpy(b).to(torch.int32).cuda()
+             for b in sweep_states(np, F.P)[1]]
+    sweep = grind_sweep(
+        torch, "poseidon2 grind",
+        lambda b: pc.poseidon2_grind(perm, b, GRIND_LANE, SWEEP_BITS),
+        lambda b: pc.poseidon2_grind_plain(perm, b, GRIND_LANE, SWEEP_BITS),
+        lambda w: p2_grind_bound(card, w), bases)
+    records["poseidon2_grind"].update(sweep)
+    emit({"phase": "kernels", "kernel": "poseidon2_grind",
+          "lane": GRIND_LANE, "pow_bits": SWEEP_BITS, **sweep})
 
 
 def phase_mixed(torch, np, kernels):

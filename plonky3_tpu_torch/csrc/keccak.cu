@@ -72,45 +72,48 @@ __device__ __forceinline__ uint64_t rotl(uint64_t x, int r) {
     return (x << r) | (x >> (64 - r));
 }
 
-// The same round structure as hashes/keccak.py::keccak_f: theta, the rho-pi
-// cycle from lane 1, chi, iota. Every loop is unrolled with constant
-// indices so the state stays in registers.
-__device__ __forceinline__ void keccak_f(uint64_t st[25]) {
+// One round of keccak-f, the same structure as hashes/keccak.py::keccak_f:
+// theta, the rho-pi cycle from lane 1, chi, iota with constant rc. Every
+// loop is unrolled with constant indices so the state stays in registers.
+__device__ __forceinline__ void keccak_round(uint64_t st[25], uint64_t rc) {
     constexpr int ROTC[24] = {1,  3,  6,  10, 15, 21, 28, 36, 45, 55, 2,  14,
                               27, 41, 56, 8,  25, 43, 62, 18, 39, 61, 20, 44};
     constexpr int PILN[24] = {10, 7,  11, 17, 18, 3, 5,  16, 8,  21, 24, 4,
                               15, 23, 19, 13, 12, 2, 20, 14, 22, 9,  6,  1};
+    uint64_t bc[5];
 #pragma unroll
-    for (int r = 0; r < 24; ++r) {
-        uint64_t bc[5];
+    for (int i = 0; i < 5; ++i)
+        bc[i] = st[i] ^ st[i + 5] ^ st[i + 10] ^ st[i + 15] ^ st[i + 20];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+        const uint64_t t = bc[(i + 4) % 5] ^ rotl(bc[(i + 1) % 5], 1);
+#pragma unroll
+        for (int j = 0; j < 25; j += 5) st[j + i] ^= t;
+    }
+    uint64_t t = st[1];
+#pragma unroll
+    for (int i = 0; i < 24; ++i) {
+        const int j = PILN[i];
+        const uint64_t nxt = st[j];
+        st[j] = rotl(t, ROTC[i]);
+        t = nxt;
+    }
+#pragma unroll
+    for (int j = 0; j < 25; j += 5) {
+        uint64_t row[5];
+#pragma unroll
+        for (int i = 0; i < 5; ++i) row[i] = st[j + i];
 #pragma unroll
         for (int i = 0; i < 5; ++i)
-            bc[i] = st[i] ^ st[i + 5] ^ st[i + 10] ^ st[i + 15] ^ st[i + 20];
-#pragma unroll
-        for (int i = 0; i < 5; ++i) {
-            const uint64_t t = bc[(i + 4) % 5] ^ rotl(bc[(i + 1) % 5], 1);
-#pragma unroll
-            for (int j = 0; j < 25; j += 5) st[j + i] ^= t;
-        }
-        uint64_t t = st[1];
-#pragma unroll
-        for (int i = 0; i < 24; ++i) {
-            const int j = PILN[i];
-            const uint64_t nxt = st[j];
-            st[j] = rotl(t, ROTC[i]);
-            t = nxt;
-        }
-#pragma unroll
-        for (int j = 0; j < 25; j += 5) {
-            uint64_t row[5];
-#pragma unroll
-            for (int i = 0; i < 5; ++i) row[i] = st[j + i];
-#pragma unroll
-            for (int i = 0; i < 5; ++i)
-                st[j + i] = row[i] ^ (~row[(i + 1) % 5] & row[(i + 2) % 5]);
-        }
-        st[0] ^= RC[r];
+            st[j + i] = row[i] ^ (~row[(i + 1) % 5] & row[(i + 2) % 5]);
     }
+    st[0] ^= rc;
+}
+
+// keccak-f[1600], the 24 rounds unrolled.
+__device__ __forceinline__ void keccak_f(uint64_t st[25]) {
+#pragma unroll
+    for (int r = 0; r < 24; ++r) keccak_round(st, RC[r]);
 }
 
 __device__ __forceinline__ void write_digest(uint32_t* out, const uint64_t st[25]) {
@@ -336,7 +339,23 @@ merkle_ladder_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
 // - `keccak_grind_kernel`: the proof-of-work search, see below.
 
 constexpr int RATE_WORDS = 34;
+// the grind's blocks: GRIND_THREADS threads, at most GRIND_BLOCKS_PER_SM
+// resident on each SM (the round size R in the note on the grind)
 constexpr int GRIND_THREADS = 128;
+constexpr int GRIND_BLOCKS_PER_SM = 1;
+constexpr int MAX_DEVICES = 64;
+// rounds between two looks at *best inside a candidate's keccak-f
+constexpr int GRIND_CHECK_ROUNDS = 4;
+
+// x·2^32 mod p for x < p, p < 2^31 odd: the Montgomery product of x and
+// r2 = 2^64 mod p (t = lo(x·r2)·(-p^-1) makes x·r2 + t·p a multiple of
+// 2^32; the quotient lies in [0, 2p)).
+__device__ __forceinline__ uint32_t mont(uint32_t x, uint32_t p, uint32_t nmu, uint32_t r2) {
+    const uint64_t y = (uint64_t)x * r2;
+    const uint32_t t = (uint32_t)y * nmu;
+    const uint32_t r = (uint32_t)(((uint64_t)t * p + y) >> 32);
+    return min(r, r - p);
+}
 
 // Padding of word i of a message of n words in nb blocks.
 __device__ __forceinline__ uint32_t pad_word(long long i, long long n, long long nb) {
@@ -388,25 +407,64 @@ keccak256_chain_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict_
     }
 }
 
+// keccak-f as the grind runs it for candidate c: a rolled loop over groups
+// of GRIND_CHECK_ROUNDS unrolled rounds, so the code in flight stays in the
+// instruction cache (the 24 rounds unrolled are some 4,500 instructions).
+// Each group starts by giving the candidate up if it is above `last`, a
+// value that *best held (*best only falls, so the candidate is then above
+// the final *best), and reads *best into `last` halfway through, so the
+// load's latency hides under the group's second half. Returns false if
+// the candidate was given up.
+__device__ __forceinline__ bool keccak_f_open(uint64_t st[25], uint32_t c, uint32_t& last,
+                                              const volatile uint32_t* seen) {
+    constexpr int HALF = GRIND_CHECK_ROUNDS / 2;
+#pragma unroll 1
+    for (int g = 0; g < 24; g += GRIND_CHECK_ROUNDS) {
+        if (c > last) return false;
+#pragma unroll
+        for (int r = g; r < g + HALF; ++r) keccak_round(st, RC[r]);
+        last = *seen;
+#pragma unroll
+        for (int r = g + HALF; r < g + GRIND_CHECK_ROUNDS; ++r) keccak_round(st, RC[r]);
+    }
+    return true;
+}
+
 // The smallest witness w in [0, p) for which keccak256(words ++ [monty(w)]),
 // monty(w) = w·2^32 mod p, pops a first u32 (the byte swap of digest word 7)
 // whose low pow_bits bits are zero. *best holds 0xFFFFFFFF on entry and the
 // witness on exit (still 0xFFFFFFFF if none exists).
 //
-// Each block's first warp absorbs the blocks before the witness's once and
-// stages the tail block(s) without the witness in shared memory; a thread
-// then permutes 1 or 2 blocks per candidate. Thread s of the S launched
-// takes candidates s, s + S, s + 2S, ... in order and stops at its first
-// pass (atomicMin) or at its first candidate above *best. Why the smallest
-// passing witness wins whatever the order of the blocks: *best only falls,
-// and is always a passing candidate or 0xFFFFFFFF; a thread skips a
-// candidate only when it exceeds *best at that moment, so it exceeds the
-// final *best; so every candidate below the final *best was tried and
-// failed. The wrapper sizes S to about four times the expected search, so
-// most threads try one candidate.
+// Bound: integer operations, the blocks before the witness's once and w + 1
+// candidates of 1 block (2 when the padding opens one; grind_bound in
+// chip_smoke.py). What the kernel pays beyond it is the candidates past w
+// that it tries before it can stop, so the grid is persistent and sized
+// to the card: GRIND_BLOCKS_PER_SM blocks an SM, all resident at once,
+// each of whose first warp absorbs the blocks before the witness's once
+// and stages the tail block(s) without the witness in shared memory. A
+// thread then permutes 1 or 2 blocks per candidate (25 lanes in registers:
+// enough independent instructions that one warp a scheduler keeps the
+// pipe busy), and forms the witness's Montgomery form by a Montgomery
+// product with 2^64 mod p.
+//
+// Candidates go in ascending rounds of R = gridDim.x · GRIND_THREADS: round
+// r covers [r·R, (r + 1)·R), thread s taking r·R + s. Before each round a
+// thread stops if its candidate exceeds *best as it last read it. The
+// witness's round ends when the thread that found it does, so the next
+// round has started everywhere else: a candidate therefore also looks at
+// *best every GRIND_CHECK_ROUNDS rounds of its keccak-f (`keccak_f_open`;
+// no look waits for a load) and is given up once it is above it. A thread
+// whose candidate passes atomicMins it into *best and stops. Why the smallest passing witness
+// wins whatever the order of the blocks: *best only falls, and always
+// holds a passing candidate or 0xFFFFFFFF; a thread skips or gives up a
+// candidate only when it exceeds a value that *best held, and so exceeds
+// the final *best, and a thread that stops at a pass skips only
+// candidates above that pass; so every candidate below the final *best
+// was tried and failed. Once *best holds a pass of round r, no thread
+// starts a candidate of a later round.
 __global__ void __launch_bounds__(GRIND_THREADS)
 keccak_grind_kernel(const uint32_t* __restrict__ words, long long m, uint32_t mask,
-                    uint32_t p, uint32_t r_mod_p, uint32_t* __restrict__ best) {
+                    uint32_t p, uint32_t nmu, uint32_t r2, uint32_t* __restrict__ best) {
     __shared__ uint64_t pre[25];
     __shared__ uint64_t tail[2][RATE];
     const long long n = m + 1;  // words ++ [witness]
@@ -427,27 +485,53 @@ keccak_grind_kernel(const uint32_t* __restrict__ words, long long m, uint32_t ma
     __syncthreads();
     const int wlane = (int)(m % RATE_WORDS) >> 1;  // the witness word's lane
     const int wshift = (int)(m & 1) * 32;          // and half
-    const uint32_t stride = gridDim.x * GRIND_THREADS;
+    const uint32_t in_flight = gridDim.x * GRIND_THREADS;  // R, below 2^31
     const volatile uint32_t* seen = best;
-    for (uint32_t c = blockIdx.x * GRIND_THREADS + t; c < p; c += stride) {
-        if (c > *seen) break;
-        const uint64_t wm = (uint64_t)(uint32_t)(((uint64_t)c * r_mod_p) % p) << wshift;
+    uint32_t last = *seen;  // a value *best held, read inside the last candidate
+    for (uint32_t c = blockIdx.x * GRIND_THREADS + t; c < p && c <= last; c += in_flight) {
+        const uint64_t wm = (uint64_t)mont(c, p, nmu, r2) << wshift;
         uint64_t st[25];
 #pragma unroll
         for (int i = 0; i < 25; ++i) st[i] = pre[i];
+        bool open = true;
 #pragma unroll 1
-        for (int j = 0; j < ntail; ++j) {
+        for (int j = 0; j < ntail && open; ++j) {
 #pragma unroll
             for (int i = 0; i < RATE; ++i)
                 st[i] ^= tail[j][i] ^ (j == 0 && i == wlane ? wm : 0);
-            keccak_f(st);
+            open = keccak_f_open(st, c, last, seen);
         }
+        if (!open) break;
         const uint32_t v = __byte_perm((uint32_t)(st[3] >> 32), 0, 0x0123);
         if ((v & mask) == 0) {
             atomicMin(best, c);
             break;
         }
     }
+}
+
+// The grind's grid on the current device: its resident blocks an SM (the
+// occupancy, at most GRIND_BLOCKS_PER_SM) times the SMs, queried once a
+// device.
+cudaError_t grind_grid(unsigned* grid) {
+    static unsigned cached[MAX_DEVICES];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    if (cached[dev] == 0) {
+        int per_sm = 0, sms = 0;
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, keccak_grind_kernel,
+                                                          GRIND_THREADS, 0);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (e != cudaSuccess) return e;
+        if (per_sm < 1) return cudaErrorInvalidConfiguration;
+        const int blocks = per_sm < GRIND_BLOCKS_PER_SM ? per_sm : GRIND_BLOCKS_PER_SM;
+        cached[dev] = (unsigned)(blocks * sms);
+    }
+    *grid = cached[dev];
+    return cudaSuccess;
 }
 
 unsigned blocks_for(long long h) { return (unsigned)((h + THREADS - 1) / THREADS); }
@@ -494,16 +578,21 @@ int keccak256_chain(const void* words, void* out, long long n, int k, void* stre
 }
 
 // words: m >= 0 u32 words; best: one u32 holding 0xFFFFFFFF, gets the
-// witness. About `threads` threads search, 1 <= pow_bits <= 31, p < 2^31.
-int keccak_grind(const void* words, long long m, int pow_bits, unsigned p, int threads,
-                 void* best, void* stream) {
-    if (m < 0 || pow_bits < 1 || pow_bits > 31 || threads < 1 || p >= (1u << 31))
+// witness. 1 <= pow_bits <= 31, p < 2^31 odd.
+int keccak_grind(const void* words, long long m, int pow_bits, unsigned p, void* best,
+                 void* stream) {
+    if (m < 0 || pow_bits < 1 || pow_bits > 31 || p >= (1u << 31) || p < 3 || !(p & 1))
         return (int)cudaErrorInvalidValue;
+    unsigned grid = 0;
+    const cudaError_t e = grind_grid(&grid);
+    if (e != cudaSuccess) return (int)e;
     const uint32_t mask = (uint32_t)((1ULL << pow_bits) - 1);
-    const uint32_t r_mod_p = (uint32_t)((1ULL << 32) % p);
-    keccak_grind_kernel<<<(unsigned)((threads + GRIND_THREADS - 1) / GRIND_THREADS),
-                          GRIND_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)words, m, mask, p, r_mod_p, (uint32_t*)best);
+    uint32_t inv = p;  // p^-1 mod 2^32 by Newton's iteration (3, 6, 12, 24, 48 bits)
+    for (int i = 0; i < 4; ++i) inv *= 2u - p * inv;
+    const uint32_t r = (uint32_t)((1ULL << 32) % p);
+    const uint32_t r2 = (uint32_t)((uint64_t)r * r % p);
+    keccak_grind_kernel<<<grid, GRIND_THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)words, m, mask, p, 0u - inv, r2, (uint32_t*)best);
     return (int)cudaGetLastError();
 }
 

@@ -60,10 +60,23 @@
 // - the next block's words are loaded into registers (lane i < 16: word
 //   i) a whole permutation before they are absorbed, so device memory
 //   sees each word once and its latency hides under the permutation.
-// The grind (`duplex_grind_kernel`) is throughput work: one candidate a
-// thread, each running the whole-state permutation `permute` from the
-// staged base state in shared memory; threads stop at their first pass
-// (atomicMin) or at their first candidate above the best found so far.
+// The grind (`duplex_grind_kernel`) is throughput work, bound by the
+// integer pipes: w + 1 permutations find witness w (p2_grind_bound in
+// chip_smoke.py). One candidate a thread, each running the whole-state
+// permutation `permute_open` from the staged base state. What it pays
+// beyond the bound is the candidates past w that it tries before it can
+// stop, so the grid is persistent and sized to the card
+// (GRIND_BLOCKS_PER_SM blocks an SM, each staging the table once), and the
+// candidates go in ascending rounds of one a thread, a round holding the
+// fewest candidates that keep the pipes busy: two warps a scheduler (one
+// leaves them idle between a thread's dependent instructions, more make a
+// round longer than the candidates it saves). The witness's round ends
+// when the thread that found it does, so the next round has started
+// everywhere else: a candidate therefore also looks at *best inside its
+// permutation (11 times; no look waits for a load) and is given up once it
+// is above it. The internal rounds' products by the diagonal are Shoup
+// products (`shoup`), lighter on the multiply pipe than `mmul`'s two wide
+// products.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,7 +88,8 @@ constexpr int RATE = 16;
 constexpr int HALF_FULL = 4;
 constexpr int PARTIAL = 23;
 // the constant table: rc_ei (4 x 24), rc_int (23), rc_ef (4 x 24), diag (24),
-// then the chain's: d_i^k (23 x 24, row k; 0 in column 0), c_k (24, c_23 = 0)
+// then the chain's: d_i^k (23 x 24, row k; 0 in column 0), c_k (24, c_23 = 0),
+// then the grind's: d_i in standard form (24) and floor(d_i·2^32 / p) (24)
 constexpr int OFF_EI = 0;
 constexpr int OFF_INT = HALF_FULL * WIDTH;
 constexpr int OFF_EF = OFF_INT + PARTIAL;
@@ -83,7 +97,17 @@ constexpr int OFF_DIAG = OFF_EF + HALF_FULL * WIDTH;
 constexpr int TABLE = OFF_DIAG + WIDTH;
 constexpr int OFF_POW = TABLE;
 constexpr int OFF_CSUM = OFF_POW + PARTIAL * WIDTH;
+constexpr int OFF_SHOUP = OFF_CSUM + WIDTH;
+// the grind's table in shared memory: the round constants (the table's
+// first OFF_DIAG words), then the OFF_SHOUP words
+constexpr int GRIND_TABLE = OFF_DIAG + 2 * WIDTH;
+// the grind's blocks: GRIND_THREADS threads, at most GRIND_BLOCKS_PER_SM
+// resident on each SM (R, the round's size, in the note on the grind)
 constexpr int GRIND_THREADS = 128;
+constexpr int GRIND_BLOCKS_PER_SM = 2;
+constexpr int MAX_DEVICES = 64;
+// internal rounds between two looks at *best inside a candidate
+constexpr int GRIND_CHECK_INTERNAL = 8;
 constexpr unsigned ALL = 0xffffffffu;
 
 struct Field {
@@ -108,6 +132,17 @@ __device__ __forceinline__ uint32_t mmul(uint32_t a, uint32_t b, Field f) {
     const uint32_t t = (uint32_t)x * f.nmu;
     const uint32_t r = (uint32_t)(((uint64_t)t * f.p + x) >> 32);
     return min(r, r - f.p);
+}
+
+// x·d mod p for a constant d < p (Shoup): dq = floor(d·2^32 / p) makes
+// q = hi(x·dq) the quotient of x·d by p or one less, so x·d - q·p lies in
+// [0, 2p). A high product and two low ones: cheaper on the multiply pipe
+// than `mmul`'s two wide products. The product of a Montgomery form x and
+// the standard-form d is the Montgomery form of their product.
+__device__ __forceinline__ uint32_t shoup(uint32_t x, uint32_t d, uint32_t dq, uint32_t p) {
+    const uint32_t q = __umulhi(x, dq);
+    const uint32_t r = x * d - q * p;
+    return min(r, r - p);
 }
 
 __device__ __forceinline__ uint32_t sbox(uint32_t x, Field f) {
@@ -146,37 +181,64 @@ __device__ __forceinline__ void external_round(uint32_t (&st)[WIDTH],
     mds_light(st, f.p);
 }
 
+// Words 1..23's sum (four interleaved partial sums) and their products by
+// the diagonal (d: standard form, dq: its Shoup quotients) do not wait for
+// word 0's s-box: only the last add of the sum and the adds after it do.
 __device__ __forceinline__ void internal_round(uint32_t (&st)[WIDTH], uint32_t rc,
-                                               const uint32_t (&diag)[WIDTH],
-                                               Field f) {
-    st[0] = sbox(madd(st[0], rc, f.p), f);
-    // the lane sum as four interleaved partial sums (a shorter chain)
-    uint32_t s0 = st[0], s1 = st[1], s2 = st[2], s3 = st[3];
+                                               const uint32_t (&d)[WIDTH],
+                                               const uint32_t (&dq)[WIDTH], Field f) {
+    uint32_t s0 = st[1], s1 = st[2], s2 = st[3], s3 = st[4];
 #pragma unroll
-    for (int i = 4; i < WIDTH; i += 4) {
+    for (int i = 5; i < WIDTH; i += 4) {
         s0 = madd(s0, st[i], f.p);
         s1 = madd(s1, st[i + 1], f.p);
         s2 = madd(s2, st[i + 2], f.p);
-        s3 = madd(s3, st[i + 3], f.p);
+        if (i + 3 < WIDTH) s3 = madd(s3, st[i + 3], f.p);
     }
-    const uint32_t sum = madd(madd(s0, s1, f.p), madd(s2, s3, f.p), f.p);
+    const uint32_t rest = madd(madd(s0, s1, f.p), madd(s2, s3, f.p), f.p);
+    st[0] = sbox(madd(st[0], rc, f.p), f);
+    const uint32_t sum = madd(st[0], rest, f.p);
 #pragma unroll
-    for (int i = 0; i < WIDTH; ++i) st[i] = madd(sum, mmul(st[i], diag[i], f), f.p);
+    for (int i = 0; i < WIDTH; ++i) st[i] = madd(sum, shoup(st[i], d[i], dq[i], f.p), f.p);
 }
 
-// The whole-state permutation in one thread (the grind's); c: the constant
-// table in shared memory.
-__device__ void permute(uint32_t (&st)[WIDTH], const uint32_t* c, Field f) {
+// The whole-state permutation in one thread, as the grind runs it for
+// candidate `cand` (c: the grind's table in shared memory). Before each
+// external round and every GRIND_CHECK_INTERNAL internal rounds it gives
+// the candidate up if it is above `last`, a value that *best held (*best
+// only falls, so the candidate is then above the final *best), and reads
+// *best into `last` for the next look, so no look waits for a load.
+// Returns false if the candidate was given up.
+__device__ bool permute_open(uint32_t (&st)[WIDTH], const uint32_t* c, Field f,
+                             uint32_t cand, uint32_t& last, const volatile uint32_t* seen) {
     mds_light(st, f.p);
 #pragma unroll 1
-    for (int r = 0; r < HALF_FULL; ++r) external_round(st, c + OFF_EI + r * WIDTH, f);
-    uint32_t diag[WIDTH];
+    for (int r = 0; r < HALF_FULL; ++r) {
+        if (cand > last) return false;
+        last = *seen;
+        external_round(st, c + OFF_EI + r * WIDTH, f);
+    }
+    uint32_t d[WIDTH], dq[WIDTH];
 #pragma unroll
-    for (int i = 0; i < WIDTH; ++i) diag[i] = c[OFF_DIAG + i];
+    for (int i = 0; i < WIDTH; ++i) {
+        d[i] = c[OFF_DIAG + i];
+        dq[i] = c[OFF_DIAG + WIDTH + i];
+    }
 #pragma unroll 1
-    for (int r = 0; r < PARTIAL; ++r) internal_round(st, c[OFF_INT + r], diag, f);
+    for (int r = 0; r < PARTIAL; ++r) {
+        if (r % GRIND_CHECK_INTERNAL == 0) {
+            if (cand > last) return false;
+            last = *seen;
+        }
+        internal_round(st, c[OFF_INT + r], d, dq, f);
+    }
 #pragma unroll 1
-    for (int r = 0; r < HALF_FULL; ++r) external_round(st, c + OFF_EF + r * WIDTH, f);
+    for (int r = 0; r < HALF_FULL; ++r) {
+        if (cand > last) return false;
+        last = *seen;
+        external_round(st, c + OFF_EF + r * WIDTH, f);
+    }
+    return true;
 }
 
 // ---- The warp permutation: lane i < 24 holds state word i ----
@@ -334,35 +396,69 @@ duplex_chain_kernel(const uint32_t* __restrict__ state, const uint32_t* __restri
 // lane `lane` set to mont(w) gives a lane RATE - 1 (the first sample, popped
 // from the end of the rate) whose standard form has the low bits of `mask`
 // zero. *best holds 0xFFFFFFFF on entry and the witness on exit (still
-// 0xFFFFFFFF if none exists). Thread s of the S launched takes candidates
-// s, s + S, ... in order and stops at its first pass or at its first
-// candidate above *best: *best only falls and is always a passing candidate
-// or 0xFFFFFFFF, so every candidate below the final *best was tried and
-// failed, whatever the order of the blocks.
+// 0xFFFFFFFF if none exists).
+//
+// The grid is persistent: R = gridDim.x · GRIND_THREADS threads, all
+// resident at once. Round r covers candidates [r·R, (r + 1)·R), thread s
+// taking r·R + s; before each round, and at each look inside the
+// permutation, a thread stops if its candidate exceeds *best as it last
+// read it, and a thread whose candidate passes atomicMins it into *best
+// and stops. Why the smallest passing witness wins whatever the order of
+// the blocks: *best only falls, and always holds a passing candidate or
+// 0xFFFFFFFF; a thread skips or gives up a candidate only when it exceeds
+// a value that *best held, and so exceeds the final *best, and a thread
+// that stops at a pass skips only candidates above that pass; so every
+// candidate below the final *best was tried and failed. Once *best holds
+// a pass of round r, no thread starts a candidate of a later round.
 __global__ void __launch_bounds__(GRIND_THREADS)
 duplex_grind_kernel(const uint32_t* __restrict__ base, int lane, uint32_t mask,
                     const uint32_t* __restrict__ table, Field f,
                     uint32_t* __restrict__ best) {
-    __shared__ uint32_t c[TABLE];
+    __shared__ uint32_t c[GRIND_TABLE];
     __shared__ uint32_t b0[WIDTH];
-    for (int i = threadIdx.x; i < TABLE; i += GRIND_THREADS) c[i] = table[i];
+    for (int i = threadIdx.x; i < GRIND_TABLE; i += GRIND_THREADS)
+        c[i] = table[i < OFF_DIAG ? i : OFF_SHOUP + i - OFF_DIAG];
     if (threadIdx.x < WIDTH) b0[threadIdx.x] = base[threadIdx.x];
     __syncthreads();
-    const uint32_t stride = gridDim.x * GRIND_THREADS;
+    const uint32_t in_flight = gridDim.x * GRIND_THREADS;  // R, below 2^31
     const volatile uint32_t* seen = best;
-    for (uint32_t cand = blockIdx.x * GRIND_THREADS + threadIdx.x; cand < f.p;
-         cand += stride) {
-        if (cand > *seen) break;
+    uint32_t last = *seen;  // a value *best held, read inside the last candidate
+    for (uint32_t cand = blockIdx.x * GRIND_THREADS + threadIdx.x;
+         cand < f.p && cand <= last; cand += in_flight) {
         const uint32_t wm = mmul(cand, f.r2, f);
         uint32_t st[WIDTH];
 #pragma unroll
         for (int i = 0; i < WIDTH; ++i) st[i] = i == lane ? wm : b0[i];
-        permute(st, c, f);
+        if (!permute_open(st, c, f, cand, last, seen)) break;
         if ((mmul(st[RATE - 1], 1u, f) & mask) == 0) {
             atomicMin(best, cand);
             break;
         }
     }
+}
+
+// The grind's grid on the current device: its resident blocks an SM (the
+// occupancy, at most GRIND_BLOCKS_PER_SM) times the SMs, queried once a
+// device.
+cudaError_t grind_grid(unsigned* grid) {
+    static unsigned cached[MAX_DEVICES];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    if (cached[dev] == 0) {
+        int per_sm = 0, sms = 0;
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, duplex_grind_kernel,
+                                                          GRIND_THREADS, 0);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (e != cudaSuccess) return e;
+        if (per_sm < 1) return cudaErrorInvalidConfiguration;
+        const int blocks = per_sm < GRIND_BLOCKS_PER_SM ? per_sm : GRIND_BLOCKS_PER_SM;
+        cached[dev] = (unsigned)(blocks * sms);
+    }
+    *grid = cached[dev];
+    return cudaSuccess;
 }
 
 bool field_ok(unsigned p, unsigned mu) {
@@ -386,17 +482,16 @@ int poseidon2_duplex_chain(const void* state, const void* words, long long n, vo
 }
 
 // base: (24,) u32 Montgomery words, the staged state; best: one u32 holding
-// 0xFFFFFFFF, gets the witness. About `threads` threads search,
-// 0 <= lane < 16, 1 <= pow_bits <= 30.
-int poseidon2_grind(const void* base, int lane, int pow_bits, int threads,
-                    const void* table, unsigned p, unsigned mu, unsigned r2, void* best,
-                    void* stream) {
-    if (lane < 0 || lane >= RATE || pow_bits < 1 || pow_bits > 30 || threads < 1 ||
-        !field_ok(p, mu))
+// 0xFFFFFFFF, gets the witness. 0 <= lane < 16, 1 <= pow_bits <= 30.
+int poseidon2_grind(const void* base, int lane, int pow_bits, const void* table,
+                    unsigned p, unsigned mu, unsigned r2, void* best, void* stream) {
+    if (lane < 0 || lane >= RATE || pow_bits < 1 || pow_bits > 30 || !field_ok(p, mu))
         return (int)cudaErrorInvalidValue;
+    unsigned grid = 0;
+    const cudaError_t e = grind_grid(&grid);
+    if (e != cudaSuccess) return (int)e;
     const uint32_t mask = (1u << pow_bits) - 1;
-    duplex_grind_kernel<<<(unsigned)((threads + GRIND_THREADS - 1) / GRIND_THREADS),
-                          GRIND_THREADS, 0, (cudaStream_t)stream>>>(
+    duplex_grind_kernel<<<grid, GRIND_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)base, lane, mask, (const uint32_t*)table, Field{p, 0u - mu, r2},
         (uint32_t*)best);
     return (int)cudaGetLastError();

@@ -18,7 +18,8 @@ counterparts are jnp code, not TPU kernels):
 - `keccak256_chain`: (n,) words -> the (k, 8) digests d1 = keccak256(words),
   d_{i+1} = keccak256(d_i), in one launch.
 - `keccak_grind`: the smallest proof-of-work witness, as a (1,) tensor on
-  the device, in one launch.
+  the device, in one launch of a grid sized to the card, searching in
+  ascending rounds.
 """
 
 from __future__ import annotations
@@ -134,9 +135,10 @@ def bswap32(x):
 
 
 def grind_batch(pow_bits):
-    """Candidates searched at once: about four times the expected 2^pow_bits
-    tries, at most 2^17 (the kernel's thread count, the plain version's
-    window). The witness found does not depend on it."""
+    """The plain version's window: about four times the expected
+    2^pow_bits tries, at most 2^17 candidates hashed at once. The kernel
+    does not read it (its grid is sized to the card), and the witness
+    found does not depend on it."""
     return 1 << min(17, pow_bits + 2)
 
 
@@ -266,8 +268,10 @@ def keccak256_chain(words, k):
 def keccak_grind(words, pow_bits, p):
     """Proof-of-work search: (m,) int32 words -> the smallest witness w in
     [0, p) of `keccak_grind_plain`, as a (1,) int32 tensor on the device of
-    `words` (-1 if none exists); nothing is copied to the host."""
-    if words.dim() != 1 or not 1 <= pow_bits <= 31 or not 0 < p < 1 << 31:
+    `words` (-1 if none exists); nothing is copied to the host. p is an
+    odd prime below 2^31 (the kernel forms Montgomery products mod p)."""
+    if (words.dim() != 1 or not 1 <= pow_bits <= 31 or not 2 < p < 1 << 31
+            or p % 2 == 0):
         raise ValueError(f"keccak_grind: {tuple(words.shape)} words, "
                          f"{pow_bits} bits, p = {p}")
     if words.device.type == "cpu":
@@ -275,7 +279,7 @@ def keccak_grind(words, pow_bits, p):
     kernels.require_cuda_tensor(words, "keccak_grind", torch.int32)
     best = torch.full((1,), -1, dtype=torch.int32, device=words.device)
     kernels.check(kernels.lib("keccak").keccak_grind(
-        words.data_ptr(), words.shape[0], pow_bits, p, grind_batch(pow_bits),
-        best.data_ptr(), kernels.stream_of(words)), "keccak_grind")
+        words.data_ptr(), words.shape[0], pow_bits, p, best.data_ptr(),
+        kernels.stream_of(words)), "keccak_grind")
     kernels.LAUNCHES["keccak_grind"] += 1
     return best

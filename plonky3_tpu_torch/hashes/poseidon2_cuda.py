@@ -15,8 +15,8 @@ be some 300,000 launches one after another.
   One launch. Replaces `native/poseidon2.c::p3_p2_duplex_chain` and the
   `lax.scan` absorb of `plonky3_tpu/challenger/device_duplex.py:58`.
 - `poseidon2_grind`: the smallest proof-of-work witness, as a (1,) tensor
-  on the device. One launch. Replaces `device_duplex.py:146`
-  `grind_field`.
+  on the device. One launch of a grid sized to the card, searching in
+  ascending rounds. Replaces `device_duplex.py:146` `grind_field`.
 
 Both take and return int32 tensors of Montgomery-form words and a width-24
 `Poseidon2` whose tables they read. A CPU tensor takes the plain version
@@ -33,7 +33,7 @@ from .poseidon2 import _permute_std
 
 WIDTH = 24
 RATE = 16
-GRIND_MAX_THREADS = 1 << 17
+GRIND_MAX_WINDOW = 1 << 17
 
 
 def _check_perm(perm):
@@ -66,10 +66,11 @@ def poseidon2_duplex_chain_plain(perm, state, words):
 
 
 def grind_batch(pow_bits):
-    """Candidates searched at once: about four times the expected 2^pow_bits
-    tries, at most GRIND_MAX_THREADS (the kernel's thread count, the plain
-    version's window). The witness found does not depend on it."""
-    return min(GRIND_MAX_THREADS, 1 << (pow_bits + 2))
+    """The plain version's window: about four times the expected
+    2^pow_bits tries, at most GRIND_MAX_WINDOW candidates permuted at
+    once. The kernel does not read it (its grid is sized to the card), and
+    the witness found does not depend on it."""
+    return min(GRIND_MAX_WINDOW, 1 << (pow_bits + 2))
 
 
 def poseidon2_grind_plain(perm, base, lane, pow_bits):
@@ -113,16 +114,21 @@ def kernel_table(perm, device):
     """The kernels' constant table on `device`: Montgomery-form u32
     words, the external initial round constants (4 × 24), the internal
     ones (23), the external final ones (4 × 24), the internal diagonal
-    (24); then the chain's `internal_tables` (23 × 24, 24). The grind
-    reads the first four parts."""
+    (24); then the chain's `internal_tables` (23 × 24, 24); then, for the
+    grind's Shoup products, the diagonal in standard form d (24) and
+    floor(d·2^32 / p) (24). The grind reads the round constants and the
+    last part."""
     def make(dev):
         c = perm._device_consts()
         pows, csum = internal_tables(perm)
         mont = [perm.F.to_monty_np(t.reshape(-1).astype(np.uint32))
                 for t in (pows, csum)]
+        d = np.array(perm.diag_std, dtype=np.int64)
         flat = np.concatenate([c["rc_ei"].reshape(-1), c["rc_int"],
-                               c["rc_ef"].reshape(-1), c["diag"], *mont])
-        return torch.from_numpy(flat.astype(np.int32)).to(dev)
+                               c["rc_ef"].reshape(-1), c["diag"], *mont,
+                               d, (d << 32) // perm.F.P])
+        flat = flat.astype(np.uint32).astype(np.int32)
+        return torch.from_numpy(flat).to(dev)
 
     return perm.on_device("kernel", device, make)
 
@@ -174,7 +180,7 @@ def poseidon2_grind(perm, base, lane, pow_bits):
     best = torch.full((1,), -1, dtype=torch.int32, device=base.device)
     p, mu, r2 = _field_args(perm.F)
     kernels.check(kernels.lib("poseidon2").poseidon2_grind(
-        base.data_ptr(), lane, pow_bits, grind_batch(pow_bits),
+        base.data_ptr(), lane, pow_bits,
         kernel_table(perm, base.device).data_ptr(), p, mu, r2,
         best.data_ptr(), kernels.stream_of(base)), "poseidon2_grind")
     kernels.LAUNCHES["poseidon2_grind"] += 1

@@ -45,11 +45,11 @@ _SIGNATURES = {
         "keccak_compress": [_P, _P, _P, _L, _P],
         "keccak_merkle_ladder": [_P, _P, _L, _I, _P],
         "keccak256_chain": [_P, _P, _L, _I, _P],
-        "keccak_grind": [_P, _L, _I, _U, _I, _P, _P],
+        "keccak_grind": [_P, _L, _I, _U, _P, _P],
     },
     "poseidon2": {
         "poseidon2_duplex_chain": [_P, _P, _L, _P, _P, _U, _U, _U, _P],
-        "poseidon2_grind": [_P, _I, _I, _I, _P, _U, _U, _U, _P, _P],
+        "poseidon2_grind": [_P, _I, _I, _P, _U, _U, _U, _P, _P],
     },
 }
 

@@ -133,20 +133,34 @@ def test_keccak256_chain_matches_plain(cuda, n, k):
     assert torch.equal(got, kc.keccak256_chain_plain(words, k))
 
 
+# a grind's witness past the first round of the persistent grid: above
+# 2^16, more threads than SMs x resident blocks x 128 hold on an H100
+PAST_FIRST_ROUND = 1 << 16
+
+
 @pytest.mark.parametrize("m,pow_bits", [(18, 1), (18, 2), (18, 16),
-                                        (33, 4), (40, 8), (40, 12)])
+                                        (33, 4), (40, 8), (40, 12),
+                                        (18, 17), (33, 16)])
 def test_keccak_grind_matches_plain(cuda, m, pow_bits):
-    """pow_bits 1 and 2: many candidates of the first sweep pass, and the
-    smallest must win whatever the order of the blocks."""
+    """pow_bits 1 and 2: many candidates of the first round pass, and the
+    smallest must win whatever the order of the blocks; (18, 17): a
+    witness past the first round; m = 33: the padding opens a block. Each
+    case runs two grinds back to back on one stream, one launch each."""
     from plonky3_tpu_torch import kernels
     from plonky3_tpu_torch.hashes import keccak_cuda as kc
 
-    words = _words(np.random.default_rng(m + pow_bits), (m,), 1 << 32, cuda)
+    rng = np.random.default_rng(m + pow_bits)
+    words, other = (_words(rng, (m,), 1 << 32, cuda) for _ in range(2))
     before = kernels.LAUNCHES["keccak_grind"]
     got = kc.keccak_grind(words, pow_bits, F.P)
-    torch.cuda.synchronize()
     assert kernels.LAUNCHES["keccak_grind"] - before == 1
+    again = kc.keccak_grind(other, pow_bits, F.P)
+    assert kernels.LAUNCHES["keccak_grind"] - before == 2
+    torch.cuda.synchronize()
     assert torch.equal(got, kc.keccak_grind_plain(words, pow_bits, F.P))
+    assert torch.equal(again, kc.keccak_grind_plain(other, pow_bits, F.P))
+    if (m, pow_bits) == (18, 17):
+        assert int(got[0]) > PAST_FIRST_ROUND
 
 
 @pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 10528])
@@ -186,20 +200,29 @@ def test_poseidon2_duplex_chain_twice_on_one_state(cuda, n1, n2):
 
 
 @pytest.mark.parametrize("lane,pow_bits", [(0, 1), (5, 2), (15, 12),
-                                           (3, 16)])
+                                           (3, 16), (15, 1), (10, 17)])
 def test_poseidon2_grind_matches_plain(cuda, lane, pow_bits):
+    """(10, 17): a witness past the first round of the grid. Each case runs
+    two grinds back to back on one stream, one launch each."""
     from plonky3_tpu_torch import kernels
     from plonky3_tpu_torch.hashes import poseidon2_cuda as pc
     from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
 
     perm = default_poseidon2(F, 24)
-    base = _words(np.random.default_rng(lane), (24,), F.P, cuda)
+    rng = np.random.default_rng(lane)
+    base, other = (_words(rng, (24,), F.P, cuda) for _ in range(2))
     before = kernels.LAUNCHES["poseidon2_grind"]
     got = pc.poseidon2_grind(perm, base, lane, pow_bits)
-    torch.cuda.synchronize()
     assert kernels.LAUNCHES["poseidon2_grind"] - before == 1
+    again = pc.poseidon2_grind(perm, other, lane, pow_bits)
+    assert kernels.LAUNCHES["poseidon2_grind"] - before == 2
+    torch.cuda.synchronize()
     assert torch.equal(got, pc.poseidon2_grind_plain(perm, base, lane,
                                                      pow_bits))
+    assert torch.equal(again, pc.poseidon2_grind_plain(perm, other, lane,
+                                                       pow_bits))
+    if (lane, pow_bits) == (10, 17):
+        assert int(got[0]) > PAST_FIRST_ROUND
 
 
 def _configs():
