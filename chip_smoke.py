@@ -47,6 +47,11 @@ Phases, each printed as one JSON line:
            the CPU (plain versions) for Poseidon2VectorAir(KoalaBear, 16,
            vector_len=8) at 2^8 rows, and the port's verifier
            (stark/verifier.py, host work) accepts every one of them;
+  keccak_air_small  the generic AIR path (the AIR's eval over the
+           prover backend): FibonacciAir at 2^8 rows and KeccakAir with
+           10 permutations, both provers on CUDA equal to both on the CPU,
+           every proof verified, and a changed public value (Fibonacci)
+           and a changed next-row value (KeccakAir) rejected;
   full     the benchmark workload: 2^20 Poseidon2 permutations, a
            2^17 x 1312 trace, keccak config, FriParameters
            .new_benchmark_high_arity(); two proves, the second timed, with
@@ -79,7 +84,19 @@ Phases, each printed as one JSON line:
            peak memory, spans, per-proof bounds, synchronizing calls,
            profile; then the port's verifier accepts the proof and
            rejects a changed opened trace value, a changed trace root and
-           a changed commit-phase sibling digest.
+           a changed commit-phase sibling digest;
+  keccak_air the reference CLI's keccak-f-permutations objective at
+           full width: 5,461 permutations, a 2^17 x 2,633 KeccakAir trace,
+           keccak config, new_benchmark_high_arity(), through the generic
+           quotient path: the device-transcript prover cold and warm, its
+           proof equal to prove()'s, warm times of both in turns,
+           launches, one copy, peak memory; the port's verifier accepts
+           the proof and rejects a changed opened trace value, a changed
+           commit-phase sibling digest and a changed next-row value; then
+           spans, per-proof bounds, synchronizing calls, the profile and
+           the transcript chain call by call. The kernels phase also
+           holds the NTTs and the leaf sponge at this width against their
+           plain versions (the `*_keccak_air` keys of the kernels line).
 Every profile checks that it recorded each of the port's kernels as many
 times as the prove launched it, and profiles again where it did not.
 Before the last line: one JSON object listing every kernel. The last line
@@ -687,6 +704,20 @@ def compare(what, got, want):
     return err
 
 
+# KeccakAir's width (models/keccak_air.py NUM_KECCAK_COLS): the NTTs and
+# the leaf sponge run at it on the keccak-AIR path
+KECCAK_AIR_WIDTH = 2633
+
+
+def at_width(err, ms, ms_src, wall, plain, b, sh, shape):
+    """A kernel record's keys at the keccak-AIR path's shape."""
+    return {"max_abs_err_keccak_air": err, "ms_keccak_air": ms,
+            "ms_source_keccak_air": ms_src, "wall_ms_keccak_air": wall,
+            "plain_ms_keccak_air": plain, "bound_ms_keccak_air": b[0],
+            "bound_by_keccak_air": b[1], "share_keccak_air": sh,
+            "shape_keccak_air": shape}
+
+
 def phase_kernels(torch, np, card):
     """Every kernel against its plain version; returns the per-kernel
     records of the main-path shapes."""
@@ -700,10 +731,14 @@ def phase_kernels(torch, np, card):
     rng = np.random.default_rng(5)
     records = {}
 
-    # NTT: (log_n, w, inverse, zero_top); the first four are the main
-    # path's shapes (trace iDFT and LDE, quotient-chunk iDFT and LDE),
-    # the last three go through more than one level of the plan.
+    # NTT: (log_n, w, inverse, zero_top); the first two and the fifth
+    # and sixth are the main path's shapes (trace iDFT and LDE,
+    # quotient-chunk iDFT and LDE), the third and fourth the keccak-AIR
+    # path's trace iDFT and LDE; the last three go through more than one
+    # level of the plan.
     ntt_cases = [(17, 1312, True, False), (18, 1312, False, True),
+                 (17, KECCAK_AIR_WIDTH, True, False),
+                 (18, KECCAK_AIR_WIDTH, False, True),
                  (17, 4, True, False), (18, 4, False, True),
                  (1, 5, False, False), (1, 5, True, True),
                  (6, 5, False, False), (6, 5, True, False),
@@ -764,10 +799,18 @@ def phase_kernels(torch, np, card):
                         wall_ms=wall, plain_ms=plain,
                         bound_ms=b[0], bound_by=b[1], library_ms=None,
                         share=sh, shape=[log_n, w, "zero_top"])
+            if (log_n, w) == (18, KECCAK_AIR_WIDTH):
+                for name, ms, ms_src, wall, b, sh in (
+                        ("ntt_k1", k1, k1_src, k1_wall, b1, sh1),
+                        ("ntt_k2", k2, k2_src, k2_wall, b2, sh2)):
+                    records[name].update(at_width(
+                        err, ms, ms_src, wall, plain, b, sh,
+                        [log_n, w, "zero_top"]))
         emit({"phase": "kernels", "kernel": "ntt", **rec})
 
     src = "plonky3_tpu_torch/csrc/keccak.cu"
-    for h, w in [(1 << 18, 1312), (1 << 18, 8), (1 << 18, 32), (1, 3),
+    for h, w in [(1 << 18, 1312), (1 << 18, KECCAK_AIR_WIDTH),
+                 (1 << 18, 8), (1 << 18, 32), (1, 3),
                  (5, 35), (300, 34), (7, 1)]:
         flat = _rand_words(torch, rng, (h, w), F.P)
         got = kc.keccak_sponge_rows(flat)
@@ -792,6 +835,9 @@ def phase_kernels(torch, np, card):
                     plain_ms=plain, bound_ms=b[0],
                     bound_by=b[1], library_ms=None, share=rec["share"],
                     shape=[h, w])
+            elif w == KECCAK_AIR_WIDTH:
+                records["keccak_sponge"].update(at_width(
+                    err, ms, ms_src, wall, plain, b, rec["share"], [h, w]))
         emit({"phase": "kernels", "kernel": "keccak_sponge", **rec})
 
     for h in [1 << 17, 1, 3, 1000]:
@@ -1155,6 +1201,82 @@ def phase_small(torch, np):
           "verified": sum(len(got) for got in proofs.values()), **secs})
 
 
+def _air_workload(np, name, device, log_n=None, perms=None):
+    """(air, trace, public values) of FibonacciAir at 2^log_n rows or of
+    KeccakAir over `perms` permutations, the inputs from
+    np.random.default_rng(1) as the reference CLI makes them."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.models import fibonacci, keccak_air
+
+    if name == "fibonacci":
+        trace, publics = fibonacci.generate_fibonacci_trace(F, log_n,
+                                                            device=device)
+        return fibonacci.FibonacciAir(F), trace, publics
+    inputs = np.random.default_rng(1).integers(0, 1 << 64, size=(perms, 25),
+                                               dtype=np.uint64)
+    return (keccak_air.KeccakAir(F),
+            keccak_air.generate_keccak_trace(F, inputs, device=device), [])
+
+
+def phase_keccak_air_small(torch, np):
+    """The generic AIR path at small sizes: FibonacciAir (public values,
+    every filter) at 2^8 rows and KeccakAir with 10 permutations (256
+    rows). prove() and the device-transcript prover on the card equal both
+    on the CPU (plain versions); the port's verifier accepts every proof,
+    and rejects a changed public value (Fibonacci) and a changed
+    trace_next[0] (KeccakAir) with the class the tests pin."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+    from plonky3_tpu_torch.stark.fast_prover import _prove_device_fs
+    from plonky3_tpu_torch.stark.prover import prove
+    from plonky3_tpu_torch.stark.verifier import (InvalidOpeningArgument,
+                                                  verify)
+
+    params = FriParameters(log_blowup=1, log_final_poly_len=0,
+                           max_log_arity=3, num_queries=10,
+                           commit_proof_of_work_bits=0,
+                           query_proof_of_work_bits=8)
+    secs, out = {}, {}
+    for name, kw in (("fibonacci", {"log_n": 8}), ("keccak", {"perms": 10})):
+        proofs = {}
+        for dev in ("cuda", "cpu"):
+            air, trace, publics = _air_workload(np, name, dev, **kw)
+            config = keccak_stark_config(F, E, params, device=dev)
+            for fn_name, fn in (("prove", prove), ("fast", _prove_device_fs)):
+                t0 = time.perf_counter()
+                proof = fn(config, air, trace, publics)
+                torch.cuda.synchronize()
+                secs[f"{name}_{fn_name}_{dev}_s"] = time.perf_counter() - t0
+                verify(config, air, proof, publics)  # raises on a rejection
+                proofs[fn_name, dev] = proof
+        got = {k: as_plain(p) for k, p in proofs.items()}
+        if len(set(got.values())) != 1:
+            raise AssertionError(f"the small {name} proofs differ: "
+                                 f"{sorted(got, key=got.get)}")
+        proof = proofs["fast", "cuda"]
+        if name == "fibonacci":
+            probe = "public_value"
+            bad_publics = publics[:-1] + [(publics[-1] + 1) % F.P]
+            bad = proof
+        else:
+            probe, bad_publics = "trace_next", publics
+            bad = copy.deepcopy(proof)
+            _bump_trace_next(bad, E)
+        try:
+            verify(config, air, bad, bad_publics)
+        except InvalidOpeningArgument as e:
+            out[name] = {"rows": trace.shape[0], "width": air.width,
+                         "publics": len(publics), "verified": len(proofs),
+                         "probe": probe, "raised": type(e).__name__,
+                         "message": str(e)}
+        else:
+            raise AssertionError(f"verify accepted the {name} probe {probe}")
+    emit({"phase": "keccak_air_small", "cuda_equals_cpu": True,
+          "fast_equals_prove": True, **out, **secs})
+
+
 # the kernels the main path must launch
 MAIN_PATH = ("ntt_k1", "ntt_k2", "keccak_sponge", "keccak_ladder")
 
@@ -1234,10 +1356,11 @@ def timer(torch, config, air, trace):
     return timed
 
 
-def warm_turns(timed, prove, fast):
+def warm_turns(timed, prove, fast,
+               order=("prove", "fast", "fast", "prove", "prove", "fast")):
     """Warm times of both provers in turns, on the same card."""
     turns = {"prove": [], "fast": []}
-    for name in ("prove", "fast", "fast", "prove", "prove", "fast"):
+    for name in order:
         turns[name].append(timed(prove if name == "prove" else fast)[1])
     return turns
 
@@ -1342,22 +1465,23 @@ KECCAK_KERNELS = ("keccak_sponge", "keccak_compress", "keccak_ladder",
                   "keccak256_chain", "keccak_grind")
 
 
-def phase_poseidon2(torch, np, kernels, card):
-    """The benchmark workload under poseidon2_stark_config through the
-    device-transcript prover (`_prove_device_fs`, what prove_fast runs),
-    cold and warm, against prove(); then the port's verifier on its proof.
-    Returns its launches, per-proof bounds and profiled device time by
-    kernel."""
-    from plonky3_tpu_torch.fields import KoalaBear as F
-    from plonky3_tpu_torch.fri.config import FriParameters
-    from plonky3_tpu_torch.merkle.mmcs import levels_by_compress
+def device_fs_phase(torch, kernels, card, phase, workload, path, stray,
+                    turns_order, probes, info):
+    """A full-size workload through the device-transcript prover
+    (`_prove_device_fs`, what prove_fast runs): cold and warm, its
+    launches (every kernel of `path`, none of `stray`, one grind, the
+    last of `path`), one device-to-host copy, peak memory, its proof equal
+    to prove()'s, warm times of both in turns (`turns_order`); then the
+    port's verifier on the proof with `probes`, spans, per-proof bounds,
+    synchronizing calls and the profile, each line named after `phase`.
+    Returns its launches, per-proof bounds, profiled device time by
+    kernel and the recorded launches of one prove."""
     from plonky3_tpu_torch.stark import fast_prover as fp
     from plonky3_tpu_torch.stark.prover import prove
 
-    log_n = 17
-    params = FriParameters.new_benchmark_high_arity()
-    config, air, trace = _workload(np, log_n, params, "cuda", "poseidon2")
-
+    config, air, trace = workload
+    params = config.pcs.fri
+    log_n = trace.shape[0].bit_length() - 1
     timed = timer(torch, config, air, trace)
     torch.cuda.reset_peak_memory_stats()
     first, cold_s = timed(fp._prove_device_fs)
@@ -1367,57 +1491,80 @@ def phase_poseidon2(torch, np, kernels, card):
     launches = dict(kernels.LAUNCHES)
     pulls = fp.PULLS["count"] - pulls
     peak_mem = torch.cuda.max_memory_allocated()
-    missing = [k for k in POSEIDON2_PATH if launches[k] == 0]
-    stray = [k for k in KECCAK_KERNELS if launches[k]]
-    if missing or stray:
-        raise AssertionError(f"poseidon2 fast prove: not launched {missing},"
-                             f" launched {stray}")
+    missing = [k for k in path if launches[k] == 0]
+    launched = [k for k in stray if launches[k]]
+    if missing or launched:
+        raise AssertionError(f"{phase} fast prove: not launched {missing}, "
+                             f"launched {launched}")
+    grind = path[-1]
     grinds = 1 + (params.commit_proof_of_work_bits > 0) * len(
         proof.opening_proof.commit_phase_commits)
-    if launches["poseidon2_grind"] != grinds:
-        raise AssertionError(f"{launches['poseidon2_grind']} grinds, "
-                             f"expected {grinds}")
+    if launches[grind] != grinds:
+        raise AssertionError(f"{launches[grind]} grinds, expected {grinds}")
     if pulls != 1:
         raise AssertionError(f"{pulls} device-to-host copies in one proof")
     ref, prove_cold_s = timed(prove)
     if as_plain(proof) != as_plain(ref):
-        raise AssertionError("the poseidon2 fast proof differs from "
-                             "prove()'s")
+        raise AssertionError(f"the {phase} fast proof differs from "
+                             f"prove()'s")
     if as_plain(first) != as_plain(proof):
-        raise AssertionError("two poseidon2 fast proves differ")
+        raise AssertionError(f"two {phase} fast proves differ")
     check_shape(proof, air, params, log_n)
-    turns = warm_turns(timed, prove, fp._prove_device_fs)
-    n_perms = 8 << log_n
+    turns = warm_turns(timed, prove, fp._prove_device_fs, turns_order)
     fast_s = statistics.median(turns["fast"])
-    emit({"phase": "poseidon2", "log_n": log_n, "perms": n_perms,
+    emit({"phase": phase, "log_n": log_n, **info,
           "cold_prove_s": cold_s, "warm_prove_s": warm_s,
           "cold_host_transcript_prove_s": prove_cold_s,
-          "perms_per_s": n_perms / fast_s, "peak_mem_bytes": peak_mem,
+          "perms_per_s": info["perms"] / fast_s, "peak_mem_bytes": peak_mem,
           "pulls": pulls, "launches": launches,
           "warm_fast_s_turns": turns["fast"],
           "warm_prove_s_turns": turns["prove"], "fast_median_s": fast_s,
           "prove_median_s": statistics.median(turns["prove"]),
           "equals_prove": True})
-    phase_verify(config, air, proof, log_n, phase="poseidon2_verify",
-                 probes=("trace_local", "trace_root",
-                         "commit_phase_sibling_digest"))
+    phase_verify(config, air, proof, log_n, phase=f"{phase}_verify",
+                 probes=probes)
     spans = {}
     traced, calls = recorded(torch, kernels, lambda: fp._prove_device_fs(
         config, air, trace, [], spans=spans))
-    emit({"phase": "poseidon2_spans", "seconds": spans})
+    emit({"phase": f"{phase}_spans", "seconds": spans})
     fri = traced.opening_proof
     witnesses = (list(fri.commit_pow_witnesses)
                  if params.commit_proof_of_work_bits else [])
     per_proof = launch_bounds(card, calls,
                               witnesses + [fri.query_pow_witness])
-    emit({"phase": "poseidon2_per_proof", "kernels": per_proof})
+    emit({"phase": f"{phase}_per_proof", "kernels": per_proof})
     syncs = sync_calls(torch, lambda: fp._prove_device_fs(config, air,
                                                           trace, []))
-    emit({"phase": "poseidon2_syncs",
+    emit({"phase": f"{phase}_syncs",
           "synchronizing_calls": sum(syncs.values()),
           "by_message": dict(syncs)})
     device_ms = profile_prove(torch, kernels, fp._prove_device_fs, config,
-                              air, trace, fast_s, phase="poseidon2_profile")
+                              air, trace, fast_s, phase=f"{phase}_profile")
+    return dict(launches=launches, per_proof=per_proof, device_ms=device_ms,
+                calls=calls)
+
+
+def phase_poseidon2(torch, np, kernels, card):
+    """The benchmark workload under poseidon2_stark_config through
+    `device_fs_phase` (probes: a changed opened trace value, trace root
+    and commit-phase sibling digest; two warm turns of each prover, the
+    keccak phases take three, for the script's time), then the duplex
+    chain call by call and the plain-torch hashing of the trace tree.
+    Returns its launches, per-proof bounds and profiled device time by
+    kernel."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.merkle.mmcs import levels_by_compress
+
+    log_n = 17
+    params = FriParameters.new_benchmark_high_arity()
+    config, air, trace = _workload(np, log_n, params, "cuda", "poseidon2")
+    out = device_fs_phase(
+        torch, kernels, card, "poseidon2", (config, air, trace),
+        POSEIDON2_PATH, KECCAK_KERNELS, ("prove", "fast", "fast", "prove"),
+        ("trace_local", "trace_root", "commit_phase_sibling_digest"),
+        {"perms": 8 << log_n})
+    calls = out.pop("calls")
     chains = [(a[2], ms) for fn, a, ms in calls
               if fn == "poseidon2_duplex_chain"]
     longest = max(n for n, _ in chains)
@@ -1443,7 +1590,46 @@ def phase_poseidon2(torch, np, kernels, card):
           "width": rows.shape[1], "sponge_ms": sponge_ms,
           "sponge_permutations": -(-air.width // 16),
           "ladder_ms": ladder_ms, "compression_levels": len(levels) - 1})
-    return dict(launches=launches, per_proof=per_proof, device_ms=device_ms)
+    return out
+
+
+def phase_keccak_air(torch, np, kernels, card):
+    """The keccak-f-permutations objective of the reference CLI at full
+    width: 5,461 permutations, a 2^17 x 2,633 KeccakAir trace (generated
+    once), keccak_stark_config, new_benchmark_high_arity(), through
+    `device_fs_phase` (probes: a changed opened trace value, commit-phase
+    sibling digest and next-row value), then the transcript chain call by
+    call. Returns its launches, per-proof bounds and profiled device time
+    by kernel."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.models.keccak_air import NUM_KECCAK_COLS
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+
+    log_n = 17
+    perms = (1 << log_n) // 24
+    t0 = time.perf_counter()
+    air, trace, _ = _air_workload(np, "keccak", "cuda", perms=perms)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if air.width != NUM_KECCAK_COLS or trace.shape != (1 << log_n,
+                                                       KECCAK_AIR_WIDTH):
+        raise AssertionError(f"KeccakAir trace {tuple(trace.shape)}")
+    config = keccak_stark_config(
+        F, E, FriParameters.new_benchmark_high_arity(), device="cuda")
+    out = device_fs_phase(
+        torch, kernels, card, "keccak_air", (config, air, trace), FAST_PATH,
+        (), ("prove", "fast", "fast", "prove", "prove", "fast"),
+        ("trace_local", "commit_phase_sibling_digest", "trace_next"),
+        {"rows": 1 << log_n, "width": air.width, "perms": perms,
+         "trace_gen_s": gen_s})
+    emit({"phase": "keccak_air_chain_calls",
+          "calls": [{"n": a[2], "k": a[3], "us": ms * 1e3,
+                     "bound_us": chain_bound(card, a[2], a[3])[0] * 1e3}
+                    for fn, a, ms in out.pop("calls")
+                    if fn == "keccak256_chain"]})
+    return out
 
 
 def host_cpu() -> str:
@@ -1470,6 +1656,11 @@ def _bump_trace_value(proof, E):
 def _bump_sibling_digest(proof, E):
     sibs = proof.opening_proof.commit_phase_steps[0].opening_proof
     sibs[0] = ((sibs[0][0] + 1) & 0xFFFFFFFF,) + tuple(sibs[0][1:])
+
+
+def _bump_trace_next(proof, E):
+    ov = proof.opened_values
+    ov.trace_next[0] = E.add_h(ov.trace_next[0], E.one_h())
 
 
 def _bump_trace_root(proof, E):
@@ -1502,6 +1693,8 @@ def phase_verify(config, air, proof, log_n, phase="verify",
         "trace_local": (_bump_trace_value,
                         (OodEvaluationMismatch, InvalidOpeningArgument)),
         "trace_root": (_bump_trace_root, (InvalidOpeningArgument,)),
+        "trace_next": (_bump_trace_next,
+                       (OodEvaluationMismatch, InvalidOpeningArgument)),
         "commit_phase_sibling_digest": (_bump_sibling_digest,
                                         (InvalidOpeningArgument,)),
         "other_air": (None, (OodEvaluationMismatch,))}
@@ -1618,15 +1811,19 @@ def main(argv=None) -> int:
     records = timed("kernels", phase_kernels, torch, np, card)
     mixed = timed("mixed", phase_mixed, torch, np, kernels)
     timed("small", phase_small, torch, np)
+    timed("keccak_air_small", phase_keccak_air_small, torch, np)
     full = timed("full", phase_full, torch, np, kernels, card)
     fast = timed("fast", phase_fast, torch, np, kernels, card, full)
     p2 = timed("poseidon2", phase_poseidon2, torch, np, kernels, card)
+    kair = timed("keccak_air", phase_keccak_air, torch, np, kernels, card)
     # launches, proof_* : the main path (the fast prover) of the kernel's
     # config, keccak or (the duplex transcript's kernels) Poseidon2;
     # *_prove: the keccak config's prove(); *_poseidon2: the NTT kernels
-    # on the Poseidon2 path. proof_ms: the kernel's launches of one prove
-    # timed by CUDA events; proof_profiled_ms: by torch.profiler, where it
-    # recorded every launch. Every per-proof share goes through share().
+    # on the Poseidon2 path; *_keccak_air: the fast prover's kernels on
+    # the keccak-AIR path (2^17 x 2,633, keccak config). proof_ms: the
+    # kernel's launches of one prove timed by CUDA events;
+    # proof_profiled_ms: by torch.profiler, where it recorded every
+    # launch. Every per-proof share goes through share().
     for name, rec in records.items():
         main = p2 if name.startswith("poseidon2") else fast
         paths = [("", main)]
@@ -1637,6 +1834,9 @@ def main(argv=None) -> int:
         if name in POSEIDON2_PATH and main is fast:
             paths.append(("_poseidon2", p2))
             rec["launches_poseidon2"] = p2["launches"][name]
+        if name in FAST_PATH:
+            paths.append(("_keccak_air", kair))
+            rec["launches_keccak_air"] = kair["launches"][name]
         rec["launches"] = main["launches"][name]
         for key, got in paths:
             if name not in got["per_proof"]:

@@ -1,18 +1,21 @@
-"""AIR base class, the builder entry and the quotient-chunk count.
+"""AIR base class, the builder entry, the symbolic pass and the debug check.
 
-Port of `plonky3_tpu/air/api.py` (air/src/air.rs:9). An AIR sets `width`
-and implements `eval(builder)`, which the verifier runs at zeta
-(`_make_builder` with a `VerifierBackend`).
-
-The reference derives an AIR's constraint count and degree with a symbolic
-pass over its `eval`. That symbolic backend is not ported yet: an AIR here
-states its layout itself through `constraint_layout()`.
+Port of `plonky3_tpu/air/api.py` (air/src/air.rs:9, the symbolic pass of
+air/src/symbolic/builder.rs:105,166 and air/src/check_constraints.rs:429).
+An AIR sets `width` and implements `eval(builder)`; the same `eval` gives
+its constraint count and degrees (`get_symbolic_layout`), the prover's
+fold over the quotient domain, the verifier's fold at zeta and the debug
+check of a trace.
 """
 
 from __future__ import annotations
 
+import weakref
+
+import numpy as np
+
 from ..utils.bits import log2_ceil
-from .builder import AirBuilder, RowWindow, Sym
+from .builder import AirBuilder, DebugBackend, RowWindow, Sym, SymbolicBackend
 
 
 class BaseAir:
@@ -22,12 +25,10 @@ class BaseAir:
     def eval(self, builder: AirBuilder):
         raise NotImplementedError
 
-    def constraint_layout(self):
-        """(number of constraints, max constraint degree)."""
-        raise NotImplementedError
-
     def max_constraint_degree(self):
-        return self.constraint_layout()[1]
+        """Optional hint (air/src/air.rs); None: found by the symbolic
+        pass."""
+        return None
 
     def main_next_row_columns(self):
         """Columns whose next-row entries the constraints read; None means
@@ -51,7 +52,64 @@ def _make_builder(backend, width, num_public, entry, public_entry):
     )
 
 
+# per AIR instance: a wide AIR's symbolic pass takes tens of milliseconds
+# and every prove asks for it
+_LAYOUTS = weakref.WeakKeyDictionary()
+
+
+def get_symbolic_layout(air: BaseAir):
+    """(number of constraints, max constraint degree) by the symbolic
+    pass over `air.eval`."""
+    hit = _LAYOUTS.get(air)
+    if hit is not None:
+        return hit
+    backend = SymbolicBackend()
+    builder = _make_builder(
+        backend, air.width, air.num_public_values,
+        lambda kind, j: 0 if kind == "is_transition" else 1, lambda j: 0)
+    air.eval(builder)
+    degs = backend.constraint_degrees
+    out = (len(degs), max(degs) if degs else 0)
+    _LAYOUTS[air] = out
+    return out
+
+
 def get_log_num_quotient_chunks(air: BaseAir) -> int:
-    """uni-stark/src/symbolic.rs:10: log2_ceil(max(deg, 2) - 1)."""
-    degree = max(air.max_constraint_degree(), 2)
+    """uni-stark/src/symbolic.rs:10: log2_ceil(max(deg, 2) - 1), deg the
+    AIR's hint or else its symbolic degree."""
+    hint = air.max_constraint_degree()
+    if hint is None:
+        _, hint = get_symbolic_layout(air)
+    degree = max(hint, 2)
     return log2_ceil(max(degree - 1, 1))
+
+
+def check_constraints(air: BaseAir, trace_std: np.ndarray, public_values):
+    """Every row of a standard-form (n, width) numpy trace against the
+    constraints; the next row of the last wraps to the first (the
+    transition filter masks it). Returns the failures, [] when none."""
+    n = trace_std.shape[0]
+    backend = DebugBackend(air.field, n)
+    tr = trace_std.astype(np.uint64)
+    nxt = np.roll(tr, -1, axis=0)
+    first = np.zeros(n, np.uint64)
+    first[0] = 1
+    last = np.zeros(n, np.uint64)
+    last[-1] = 1
+    trans = np.ones(n, np.uint64)
+    trans[-1] = 0
+    sels = {"is_first_row": first, "is_last_row": last,
+            "is_transition": trans}
+
+    def entry(kind, j):
+        if kind == "local":
+            return tr[:, j]
+        if kind == "next":
+            return nxt[:, j]
+        return sels[kind]
+
+    builder = _make_builder(
+        backend, air.width, air.num_public_values, entry,
+        lambda j: np.full(n, public_values[j] % air.field.P, np.uint64))
+    air.eval(builder)
+    return backend.failures

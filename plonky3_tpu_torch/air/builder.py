@@ -1,22 +1,35 @@
 """The AIR builder that `air.eval` writes its constraints to.
 
-Port of the verifier's part of `plonky3_tpu/air/builder.py`
-(air/src/builder.rs:12-211). An AIR's `eval` runs over `Sym` values and
-emits each constraint to a backend; the backend decides what a value is.
-`VerifierBackend` holds extension tuples at the out-of-domain point zeta
-and folds the constraints as they come, acc = acc·alpha + C
-(uni-stark/src/verifier.rs verify_constraints), so constraint i of K gets
-alpha^(K-1-i), the power the prover's fold gives it.
+Port of `plonky3_tpu/air/builder.py` (air/src/builder.rs:12-211). An
+AIR's `eval` runs over `Sym` values and emits each constraint to a
+backend; the backend decides what a value is:
 
-The reference's symbolic (degree) and prover backends, its filters
-(`when_*`), its boolean and extension-field assertions, periodic columns
-and bus interactions come with the generic AIR path and the first AIR
-that needs them (ROADMAP M15, M17).
+  * SymbolicBackend: a value is a polynomial degree in units of the trace
+    length; it counts the constraints and their degrees
+    (air/src/symbolic/builder.rs:105,166: entries and is_first/is_last
+    have degree 1, is_transition 0, constants 0).
+  * ProverBackend: a value is an int64 Montgomery tensor over the whole
+    quotient domain; the constraints fold as they come, constraint i of K
+    with alpha^(K-1-i) (uni-stark/src/folder.rs:98).
+  * VerifierBackend: a value is an extension tuple at the out-of-domain
+    point zeta; Horner fold acc = acc·alpha + C (uni-stark/src/verifier.rs
+    verify_constraints), which gives constraint i the same alpha^(K-1-i).
+  * DebugBackend: numpy rows in standard form, exact, with the failing
+    constraints and rows listed (air/src/check_constraints.rs:429).
+
+A filter (`when`, `when_first_row`, `when_last_row`, `when_transition`)
+multiplies every constraint emitted through it, filter on the left, as
+in the reference. Extension-field constraints (`assert_zero_ext`),
+periodic columns and bus interactions come with the first AIR that
+needs them (ROADMAP M15, M17).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import numpy as np
+import torch
 
 
 class Sym:
@@ -81,6 +94,12 @@ def _flatten(v, out):
     return out
 
 
+def _check_count(flat, count):
+    if len(flat) != count:
+        raise ValueError(f"a block of {len(flat)} constraints, "
+                         f"declared {count}")
+
+
 @dataclass
 class RowWindow:
     local: list  # [Sym] the current row's entries
@@ -98,17 +117,148 @@ class AirBuilder:
         self.is_first_row = is_first_row  # Sym
         self.is_last_row = is_last_row
         self.is_transition = is_transition
+        self._filter = None  # a Sym that multiplies every constraint
 
-    def assert_zero(self, x: Sym):
+    # -- constraint emission ---------------------------------------------
+    def assert_zero(self, x):
+        if not isinstance(x, Sym):
+            x = Sym(self.backend, self.backend.const(int(x)))
+        if self._filter is not None:
+            x = self._filter * x
         self.backend.emit(x.v)
+
+    def assert_eq(self, a, b):
+        self.assert_zero(a - b)
+
+    def assert_one(self, x):
+        self.assert_zero(x - 1)
+
+    def assert_bool(self, x):
+        self.assert_zero(x * (x - 1))
 
     def assert_zero_block(self, x: Sym, count: int):
         """`count` constraints at once from a vector Sym, row-major over
         its stacked axes."""
+        if self._filter is not None:
+            x = self._filter * x
         self.backend.emit_block(x.v, count)
 
     def assert_eq_block(self, a: Sym, b: Sym, count: int):
         self.assert_zero_block(a - b, count)
+
+    # -- filters (air/src/builder.rs when_* family) -----------------------
+    def when(self, condition) -> "AirBuilder":
+        child = AirBuilder(self.backend, self.main, self.public_values,
+                           self.is_first_row, self.is_last_row,
+                           self.is_transition)
+        child._filter = (condition if self._filter is None
+                         else self._filter * condition)
+        return child
+
+    def when_first_row(self):
+        return self.when(self.is_first_row)
+
+    def when_last_row(self):
+        return self.when(self.is_last_row)
+
+    def when_transition(self):
+        return self.when(self.is_transition)
+
+
+class SymbolicBackend:
+    """Degrees; records each constraint's degree in emission order."""
+
+    def __init__(self):
+        self.constraint_degrees = []
+
+    def const(self, c):
+        return 0
+
+    def add(self, a, b):
+        return _ew(max, a, b)
+
+    sub = add
+
+    def mul(self, a, b):
+        return _ew(lambda x, y: x + y, a, b)
+
+    def neg(self, a):
+        return a
+
+    def emit(self, deg):
+        self.constraint_degrees.append(deg)
+
+    def stack(self, vals):
+        return list(vals)
+
+    def emit_block(self, v, count):
+        flat = _flatten(v, [])
+        _check_count(flat, count)
+        self.constraint_degrees.extend(flat)
+
+
+class ProverBackend:
+    """Int64 Montgomery tensors over the quotient domain; eager fold.
+
+    `alpha_pows` is a (K, D) int64 Montgomery tensor of descending powers,
+    so constraint i gets alpha^(K-1-i). The accumulator holds, per
+    extension coordinate, the sum of the products c·alpha reduced mod P
+    one by one (fewer than 2^32 terms below P fit in int64); `finalize`
+    reduces it and takes out the Montgomery factor once, which gives the
+    canonical value of the reference's sum of Montgomery products."""
+
+    def __init__(self, F, E, alpha_pows):
+        self.F, self.E = F, E
+        self.alpha_pows = alpha_pows
+        self.idx = 0
+        self.acc = None  # (..., D) int64
+
+    def const(self, c):
+        return self.F.const(c)
+
+    def add(self, a, b):
+        return self.F.add(a, b)
+
+    def sub(self, a, b):
+        return self.F.sub(a, b)
+
+    def mul(self, a, b):
+        return self.F.mul(a, b)
+
+    def neg(self, a):
+        return self.F.sub(0, a)
+
+    def _accumulate(self, term):
+        self.acc = term if self.acc is None else self.acc + term
+
+    def emit(self, c):
+        ap = self.alpha_pows[self.idx]  # (D,)
+        self.idx += 1
+        self._accumulate(torch.as_tensor(c)[..., None] * ap % self.F.P)
+
+    def stack(self, vals):
+        return torch.stack(torch.broadcast_tensors(*vals))
+
+    def emit_block(self, v, count):
+        """v: (..., Nq) whose leading axes flatten to `count` constraints;
+        constraint k gets alpha power idx + k (row-major), one batched
+        mul-reduce per extension coordinate."""
+        flat = v.reshape(count, v.shape[-1])  # (K, Nq)
+        ap = self.alpha_pows[self.idx:self.idx + count]  # (K, D)
+        self.idx += count
+        P = self.F.P
+        self._accumulate(torch.stack(
+            [(flat * ap[:, d, None] % P).sum(dim=0)
+             for d in range(self.E.D)], dim=-1))
+
+    def finalize(self, shape):
+        """The folded constraints as a canonical (*shape, D) tensor."""
+        F, D = self.F, self.E.D
+        if self.acc is None:
+            return torch.zeros(tuple(shape) + (D,), dtype=torch.int64,
+                               device=self.alpha_pows.device)
+        out = self.acc % F.P * F.RINV % F.P
+        return out.expand(tuple(shape) + (D,)).contiguous()
 
 
 class VerifierBackend:
@@ -142,8 +292,49 @@ class VerifierBackend:
 
     def emit_block(self, v, count):
         flat = _flatten(v, [])
-        if len(flat) != count:
-            raise ValueError(f"a block of {len(flat)} constraints, "
-                             f"declared {count}")
+        _check_count(flat, count)
         for c in flat:
             self.emit(c)
+
+
+class DebugBackend:
+    """Exact row-wise evaluation on numpy uint64 arrays of standard-form
+    values (31-bit fields: a product of two fits); lists each failing
+    constraint with its first ten failing rows."""
+
+    def __init__(self, F, n_rows):
+        self.P = np.uint64(F.P)
+        self.n = n_rows
+        self.failures = []
+        self.idx = 0
+
+    def const(self, c):
+        return np.full(self.n, c % int(self.P), dtype=np.uint64)
+
+    def add(self, a, b):
+        return _ew(lambda x, y: (x + y) % self.P, a, b)
+
+    def sub(self, a, b):
+        return _ew(lambda x, y: (x + self.P - y) % self.P, a, b)
+
+    def mul(self, a, b):
+        return _ew(lambda x, y: (x * y) % self.P, a, b)
+
+    def neg(self, a):
+        return _ew(lambda x, _: (self.P - x) % self.P, a, a)
+
+    def emit(self, c):
+        bad = np.nonzero(c != 0)[0]
+        if bad.size:
+            self.failures.append(dict(constraint=self.idx,
+                                      rows=bad[:10].tolist()))
+        self.idx += 1
+
+    def stack(self, vals):
+        return list(vals)
+
+    def emit_block(self, v, count):
+        flat = _flatten(v, [])
+        _check_count(flat, count)
+        for c in flat:
+            self.emit(np.broadcast_to(c, (self.n,)))

@@ -59,11 +59,8 @@ class Poseidon2VectorAir(BaseAir):
                               + self.PR)
         self.width = vector_len * self.cols_per_perm
 
-    def constraint_layout(self):
-        """One constraint per post column: 8 full rounds of V·W and PR
-        partial rounds of V (poseidon2_air.py:201-206); degree 3."""
-        V, W = self.V, self.W
-        return 2 * HALF_FULL_ROUNDS * V * W + self.PR * V, 3
+    def max_constraint_degree(self):
+        return 3
 
     # -- column offsets within one permutation's block --------------------
     def _off_full(self, section: int, r: int):

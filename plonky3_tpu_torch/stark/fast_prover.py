@@ -42,7 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..air.api import get_log_num_quotient_chunks
+from ..air.api import get_log_num_quotient_chunks, get_symbolic_layout
 from ..challenger.device_duplex import DeviceDuplexChallenger
 from ..challenger.device_serializing import DeviceSerializingChallenger32
 from ..fri.config import compute_log_arity_for_round
@@ -230,7 +230,7 @@ def _device_body_p1(config, air, trace, publics_m, meta, mark):
     trace_on_qd = pcs.get_evaluations_on_domain(trace_data, 0,
                                                 quotient_domain,
                                                 order=q_order)
-    num_constraints, _ = air.constraint_layout()
+    num_constraints, _ = get_symbolic_layout(air)
     ap_log = max(1, (num_constraints - 1).bit_length())
     alpha_pows = _ext_powers_device(E, alpha_m, ap_log)[
         :num_constraints].flip(0)

@@ -14,7 +14,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..air.api import BaseAir, get_log_num_quotient_chunks
+from ..air.api import (
+    BaseAir,
+    _make_builder,
+    get_log_num_quotient_chunks,
+    get_symbolic_layout,
+)
+from ..air.builder import ProverBackend
 from ..utils.bits import bitrev_permute_axis0, log2_strict
 from ..utils.timing import stage_timer
 from .config import StarkConfig
@@ -24,16 +30,14 @@ from .proof import Commitments, OpenedValues, Proof
 def quotient_values(config: StarkConfig, air: BaseAir, trace_domain,
                     quotient_domain, trace_on_quotient_domain, publics_m,
                     alpha_pows, rows_order: str = "natural"):
-    """C(T(x), sels(x)) / Z_H(x) over the quotient domain: (Nq, D).
+    """C(T(x), T(hx), sels(x)) / Z_H(x) over the quotient domain: (Nq, D).
 
     rows_order 'bitrev': the rows come in the committed bit-reversed
     order (a prefix of the LDE) and the output stays in that order; only
-    for AIRs that read no next row."""
+    for AIRs that read no next row. An AIR with `fold_constraints_device`
+    folds its constraints itself; any other runs its `eval` over the
+    `ProverBackend` (prover.rs:399-555, the whole domain at once)."""
     F, E = config.F, config.E
-    if not hasattr(air, "fold_constraints_device"):
-        raise NotImplementedError(
-            "the generic symbolic quotient path is ported with the other "
-            "AIRs (ROADMAP M15)")
     sels = trace_domain.selectors_on_coset_device(
         quotient_domain, trace_on_quotient_domain.device)
     if rows_order == "bitrev":
@@ -41,11 +45,42 @@ def quotient_values(config: StarkConfig, air: BaseAir, trace_domain,
             raise ValueError("bitrev rows need an AIR without next rows")
         sels = {k: bitrev_permute_axis0(v, quotient_domain.log_n)
                 for k, v in sels.items()}
-    # the folds that exist read no next row (Poseidon2VectorAir), so
-    # the rolled copy of the rows is not built
-    folded = air.fold_constraints_device(F, E, trace_on_quotient_domain,
-                                         None, sels, publics_m, alpha_pows)
+    if hasattr(air, "fold_constraints_device"):
+        # the folds that exist read no next row (Poseidon2VectorAir), so
+        # the rolled copy of the rows is not built
+        folded = air.fold_constraints_device(
+            F, E, trace_on_quotient_domain, None, sels, publics_m,
+            alpha_pows)
+    else:
+        step = (0 if rows_order == "bitrev"
+                else quotient_domain.size // trace_domain.size)
+        folded = _fold_generic(F, E, air, trace_on_quotient_domain, step,
+                               sels, publics_m, alpha_pows)
     return E.base_mul(sels["inv_vanishing"], folded)
+
+
+def _fold_generic(F, E, air, rows, step, sels, publics_m, alpha_pows):
+    """The alpha-folded constraints of `air.eval` over (Nq, w) rows: (Nq,
+    D). The next row of x is `step` rows ahead, cyclically (the
+    reference's roll). The rows are copied once, transposed, with their
+    first `step` rows appended, so that every local and next column is a
+    contiguous view of that copy."""
+    nq, w = rows.shape
+    cols = rows.new_empty((w, nq + step))
+    cols[:, :nq] = rows.t()
+    cols[:, nq:] = rows[:step].t()
+    backend = ProverBackend(F, E, alpha_pows)
+
+    def entry(kind, j):
+        if kind == "local":
+            return cols[j, :nq]
+        if kind == "next":
+            return cols[j, step:step + nq]
+        return sels[kind]
+
+    air.eval(_make_builder(backend, air.width, air.num_public_values,
+                           entry, lambda j: publics_m[j]))
+    return backend.finalize((nq,))
 
 
 def prove(config: StarkConfig, air: BaseAir, trace, public_values,
@@ -83,7 +118,7 @@ def prove(config: StarkConfig, air: BaseAir, trace, public_values,
     trace_on_qd = pcs.get_evaluations_on_domain(trace_data, 0,
                                                 quotient_domain,
                                                 order=q_order)
-    num_constraints, _ = air.constraint_layout()
+    num_constraints, _ = get_symbolic_layout(air)
     alpha_pows = E.powers_np(alpha, num_constraints)[::-1].astype(np.int64)
     publics_m = torch.from_numpy(F.to_monty_np(np.asarray(
         public_values, dtype=np.uint32)).astype(np.int64)).to(device)

@@ -32,7 +32,8 @@ def _words(rng, shape, bound, device):
 
 @pytest.mark.parametrize("log_n,w,inverse,zero_top", [
     (1, 3, False, False), (2, 1, True, False), (7, 33, False, True),
-    (10, 64, True, False), (11, 5, False, True), (21, 2, False, True)])
+    (10, 64, True, False), (11, 5, False, True), (21, 2, False, True),
+    (13, 2633, True, False), (14, 2633, False, True)])
 def test_ntt_kernels_match_plain(cuda, log_n, w, inverse, zero_top):
     from plonky3_tpu_torch.ops.ntt_cuda import dif_fused, dif_fused_plain
 
@@ -44,7 +45,8 @@ def test_ntt_kernels_match_plain(cuda, log_n, w, inverse, zero_top):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("h,w", [(1, 1), (33, 34), (100, 35), (64, 1312)])
+@pytest.mark.parametrize("h,w", [(1, 1), (33, 34), (100, 35), (64, 1312),
+                                 (300, 2633)])
 def test_keccak_kernels_match_plain(cuda, h, w):
     from plonky3_tpu_torch.hashes import keccak_cuda as kc
 
@@ -291,3 +293,44 @@ def test_prove_fast_on_cuda_never_falls_back(cuda, monkeypatch, kind):
     monkeypatch.setattr(fast_prover, "_prove_device_fs", unsupported)
     with pytest.raises(fast_prover._Unsupported):
         fast_prover.prove_fast(cfg, air, trace, [])
+
+
+@pytest.mark.parametrize("name", ["fibonacci", "keccak"])
+def test_cuda_generic_air_proofs_equal_cpu(cuda, name):
+    """The generic quotient path on the card: both provers' proofs of
+    FibonacciAir (2^8 rows) and KeccakAir (10 permutations, 256 rows) on
+    CUDA equal both on the CPU, and the port's verifier accepts them."""
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.models.fibonacci import (
+        FibonacciAir,
+        generate_fibonacci_trace,
+    )
+    from plonky3_tpu_torch.models.keccak_air import (
+        KeccakAir,
+        generate_keccak_trace,
+    )
+    from plonky3_tpu_torch.stark import fast_prover
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+    from plonky3_tpu_torch.stark.prover import prove
+    from plonky3_tpu_torch.stark.verifier import verify
+
+    params = FriParameters(log_blowup=1, log_final_poly_len=0,
+                           max_log_arity=3, num_queries=10,
+                           commit_proof_of_work_bits=0,
+                           query_proof_of_work_bits=8)
+    inputs = np.random.default_rng(5).integers(
+        0, 1 << 64, size=(10, 25), dtype=np.uint64)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        if name == "fibonacci":
+            air = FibonacciAir(F)
+            trace, publics = generate_fibonacci_trace(F, 8, device=dev)
+        else:
+            air, publics = KeccakAir(F), []
+            trace = generate_keccak_trace(F, inputs, device=dev)
+        cfg = keccak_stark_config(F, E, params, device=dev)
+        for fn in (prove, fast_prover._prove_device_fs):
+            proof = fn(cfg, air, trace, publics)
+            verify(cfg, air, proof, publics)
+            out.append(proof)
+    assert all(p == out[0] for p in out)

@@ -16,6 +16,9 @@ from plonky3_tpu.models.poseidon2_air import (
     Poseidon2VectorAir as JAir,
     generate_vectorized_trace as j_generate,
 )
+from plonky3_tpu_torch.air.api import (
+    get_symbolic_layout as port_symbolic_layout,
+)
 from plonky3_tpu_torch.fields import KoalaBear as F
 from plonky3_tpu_torch.fields import KoalaBearExt4 as E
 from plonky3_tpu_torch.fri.config import FriParameters
@@ -36,10 +39,14 @@ def test_permutation_matches_reference():
 
 @pytest.mark.parametrize("vector_len", [1, 8])
 def test_constraint_layout_matches_symbolic_pass(vector_len):
+    """The port's symbolic pass gives the layout the AIR used to state
+    itself (one constraint per post column: 8 full rounds of V·W and PR
+    partial rounds of V, degree 3) and the reference's symbolic layout."""
     ours = Poseidon2VectorAir(F, 16, vector_len=vector_len)
     ref = JAir(JF, 16, vector_len=vector_len)
     assert ours.width == ref.width
-    assert ours.constraint_layout() == get_symbolic_layout(ref)
+    stated = (2 * 4 * vector_len * 16 + ours.PR * vector_len, 3)
+    assert port_symbolic_layout(ours) == stated == get_symbolic_layout(ref)
 
 
 @pytest.mark.parametrize("vector_len", [1, 8])

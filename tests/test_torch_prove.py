@@ -34,6 +34,7 @@ from plonky3_tpu.stark import proof as jstark_proof
 from plonky3_tpu.stark.config import keccak_stark_config as j_config
 from plonky3_tpu.stark.prover import prove as j_prove
 from plonky3_tpu.stark.verifier import verify as j_verify
+from plonky3_tpu_torch.air.api import get_symbolic_layout
 from plonky3_tpu_torch.challenger import serializing
 from plonky3_tpu_torch.commit.domain import TwoAdicCoset
 from plonky3_tpu_torch.compat import fri_params_from, trace_inputs_from_numpy
@@ -400,7 +401,7 @@ def test_quotient_rows_bitrev_equal_natural():
     domain = cfg.pcs.natural_domain_for_degree(16)
     data = cfg.pcs.commit([(domain, trace)])
     qd = domain.create_disjoint_domain(32)
-    k, _ = air.constraint_layout()
+    k, _ = get_symbolic_layout(air)
     alpha = torch.from_numpy(E.powers_np((1, 2, 3, 4), k).astype(np.int64))
     args = (cfg, air, domain, qd)
     nat = quotient_values(

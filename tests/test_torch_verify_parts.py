@@ -27,7 +27,7 @@ from plonky3_tpu.hashes.keccak_sponge import (
 from plonky3_tpu.merkle.extension_mmcs import ExtensionMmcs as JExtMmcs
 from plonky3_tpu.merkle.mmcs import MerkleTreeMmcs as JMmcs
 from plonky3_tpu.models.poseidon2_air import Poseidon2VectorAir as JAir
-from plonky3_tpu_torch.air.api import _make_builder
+from plonky3_tpu_torch.air.api import _make_builder, get_symbolic_layout
 from plonky3_tpu_torch.air.builder import VerifierBackend, _ew, _flatten
 from plonky3_tpu_torch.commit.domain import TwoAdicCoset
 from plonky3_tpu_torch.fields import KoalaBear as F
@@ -249,7 +249,7 @@ def test_eval_emits_constraint_layout_count(vector_len):
     air = Poseidon2VectorAir(F, 16, vector_len=vector_len)
     backend = _CountingBackend()
     air.eval(_make_builder(backend, air.width, 0, lambda k, j: 0, None))
-    assert backend.count == air.constraint_layout()[0]
+    assert backend.count == get_symbolic_layout(air)[0]
     assert air.max_constraint_degree() == 3
 
 
@@ -281,7 +281,7 @@ def test_eval_at_a_point_matches_reference_and_prover_fold(vector_len):
     trace, _ = generate_vectorized_trace(
         air, F.rand_np(rng, (2 * vector_len, 16)), device="cpu")
     trace[1, 5] = (trace[1, 5] + 1) % F.P  # a row that breaks constraints
-    k, _ = air.constraint_layout()
+    k, _ = get_symbolic_layout(air)
     pows = torch.from_numpy(E.powers_np(alpha, k)[::-1].astype(np.int64))
     folded = air.fold_constraints_device(F, E, trace, None, None, None, pows)
     for r in range(2):
