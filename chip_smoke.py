@@ -52,6 +52,12 @@ Phases, each printed as one JSON line:
            10 permutations, both provers on CUDA equal to both on the CPU,
            every proof verified, and a changed public value (Fibonacci)
            and a changed next-row value (KeccakAir) rejected;
+  blake3_air_small  Blake3Air (9,168 columns) at 2^8 rows the same way,
+           and a changed next-row value rejected;
+  periodic  PeriodicAir and NoNextRowAir (periodic columns; the second
+           reads no next row, so its quotient folds in the committed
+           bit-reversed order and its trace opens at zeta alone) at 2^8
+           rows, both provers on CUDA equal to both on the CPU, verified;
   full     the benchmark workload: 2^20 Poseidon2 permutations, a
            2^17 x 1312 trace, keccak config, FriParameters
            .new_benchmark_high_arity(); two proves, the second timed, with
@@ -96,7 +102,17 @@ Phases, each printed as one JSON line:
            spans, per-proof bounds, synchronizing calls, the profile and
            the transcript chain call by call. The kernels phase also
            holds the NTTs and the leaf sponge at this width against their
-           plain versions (the `*_keccak_air` keys of the kernels line).
+           plain versions (the `*_keccak_air` keys of the kernels line);
+  blake3_air the reference CLI's blake3-permutations objective at full
+           width: 131,072 compressions, a 2^17 x 9,168 Blake3Air trace
+           built in row blocks, keccak config, new_benchmark_high_arity(),
+           the same checks as keccak_air; the generic quotient folds by
+           row blocks gathered from the committed LDE, the block size
+           from the card's free memory (`fold_blocks`, `fold_block_rows`
+           of each full-size phase line). The kernels phase holds the
+           NTTs at 2^18 x 9,168 against their plain versions 2,048 columns
+           at a time, and the sponge's first 2^14 rows of 2^18 x 9,168
+           (the `*_blake3_air` keys of the kernels line).
 Every profile checks that it recorded each of the port's kernels as many
 times as the prove launched it, and profiles again where it did not.
 Before the last line: one JSON object listing every kernel. The last line
@@ -690,6 +706,15 @@ def _rand_words(torch, rng, shape, P):
     return torch.from_numpy(x).to(torch.int32).cuda()
 
 
+def _rand_words_device(torch, seed, shape, P):
+    """Words below P drawn on the card by a seeded torch generator: the
+    inputs at the Blake3 width, which numpy would take tens of seconds
+    and tens of GB of host memory to draw."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, P, shape, generator=g, device="cuda",
+                         dtype=torch.int32)
+
+
 def compare(what, got, want):
     """A kernel's output against its plain version's: the max absolute
     difference, which must be 0."""
@@ -704,18 +729,43 @@ def compare(what, got, want):
     return err
 
 
-# KeccakAir's width (models/keccak_air.py NUM_KECCAK_COLS): the NTTs and
-# the leaf sponge run at it on the keccak-AIR path
+# KeccakAir's and Blake3Air's widths (models/keccak_air.py
+# NUM_KECCAK_COLS, models/blake3_air.py NUM_BLAKE3_COLS): the NTTs and the
+# leaf sponge run at them on the keccak-AIR and Blake3-AIR paths
 KECCAK_AIR_WIDTH = 2633
+BLAKE3_AIR_WIDTH = 9168
+AIR_WIDTHS = {KECCAK_AIR_WIDTH: "keccak_air", BLAKE3_AIR_WIDTH: "blake3_air"}
+# columns of one plain NTT at the Blake3 width (the whole 2^18 x 9,168
+# int64 transform and its temporaries do not fit the card at once)
+PLAIN_NTT_COLUMNS = 2048
+# rows of the plain leaf sponge at the Blake3 width (2^16 rows took 22.7 s
+# on an H100 80GB HBM3 at a 700 W power limit)
+PLAIN_SPONGE_ROWS = 1 << 14
 
 
-def at_width(err, ms, ms_src, wall, plain, b, sh, shape):
-    """A kernel record's keys at the keccak-AIR path's shape."""
-    return {"max_abs_err_keccak_air": err, "ms_keccak_air": ms,
-            "ms_source_keccak_air": ms_src, "wall_ms_keccak_air": wall,
-            "plain_ms_keccak_air": plain, "bound_ms_keccak_air": b[0],
-            "bound_by_keccak_air": b[1], "share_keccak_air": sh,
-            "shape_keccak_air": shape}
+def at_width(path, err, ms, ms_src, wall, plain, b, sh, shape):
+    """A kernel record's keys at an AIR path's shape."""
+    return {f"max_abs_err_{path}": err, f"ms_{path}": ms,
+            f"ms_source_{path}": ms_src, f"wall_ms_{path}": wall,
+            f"plain_ms_{path}": plain, f"bound_ms_{path}": b[0],
+            f"bound_by_{path}": b[1], f"share_{path}": sh,
+            f"shape_{path}": shape}
+
+
+def plain_by_columns(torch, plain, x, got, what):
+    """A column-wise function's plain version over x in blocks of
+    PLAIN_NTT_COLUMNS columns, each held against the same columns of the
+    kernel's output `got`: (max abs err, the plain versions' summed
+    milliseconds by CUDA events)."""
+    err, ms = 0, 0.0
+    for c in range(0, x.shape[1], PLAIN_NTT_COLUMNS):
+        part = x[:, c:c + PLAIN_NTT_COLUMNS].contiguous()
+        want, t = once_ms(torch, lambda: plain(part))
+        err = max(err, compare(f"{what} columns {c}",
+                               got[:, c:c + PLAIN_NTT_COLUMNS], want))
+        ms += t
+        del want
+    return err, ms
 
 
 def phase_kernels(torch, np, card):
@@ -731,14 +781,17 @@ def phase_kernels(torch, np, card):
     rng = np.random.default_rng(5)
     records = {}
 
-    # NTT: (log_n, w, inverse, zero_top); the first two and the fifth
-    # and sixth are the main path's shapes (trace iDFT and LDE,
-    # quotient-chunk iDFT and LDE), the third and fourth the keccak-AIR
-    # path's trace iDFT and LDE; the last three go through more than one
-    # level of the plan.
+    # NTT: (log_n, w, inverse, zero_top); the first two and the seventh
+    # and eighth are the main path's shapes (trace iDFT and LDE,
+    # quotient-chunk iDFT and LDE), the third to sixth the keccak-AIR and
+    # Blake3-AIR paths' trace iDFT and LDE (at the Blake3 width the plain
+    # version runs PLAIN_NTT_COLUMNS columns at a time); the last three
+    # go through more than one level of the plan.
     ntt_cases = [(17, 1312, True, False), (18, 1312, False, True),
                  (17, KECCAK_AIR_WIDTH, True, False),
                  (18, KECCAK_AIR_WIDTH, False, True),
+                 (17, BLAKE3_AIR_WIDTH, True, False),
+                 (18, BLAKE3_AIR_WIDTH, False, True),
                  (17, 4, True, False), (18, 4, False, True),
                  (1, 5, False, False), (1, 5, True, True),
                  (6, 5, False, False), (6, 5, True, False),
@@ -748,13 +801,22 @@ def phase_kernels(torch, np, card):
                  (21, 4, True, False), (22, 3, False, False)]
     for log_n, w, inverse, zero_top in ntt_cases:
         rows = (1 << log_n) >> 1 if zero_top else 1 << log_n
-        x = _rand_words(torch, rng, (rows, w), F.P)
+        x = (_rand_words_device(torch, log_n, (rows, w), F.P)
+             if w == BLAKE3_AIR_WIDTH else
+             _rand_words(torch, rng, (rows, w), F.P))
         before = dict(kernels.LAUNCHES)
         got = nc.dif_fused(F, x, log_n, inverse, zero_top)
         ran = {k: kernels.LAUNCHES[k] - before[k]
                for k in ("ntt_k1", "ntt_k2")}
-        want = nc.dif_fused_plain(F, x, log_n, inverse, zero_top)
-        err = compare(f"ntt {log_n} {w}", got, want)
+
+        def plain_ntt(part):
+            return nc.dif_fused_plain(F, part, log_n, inverse, zero_top)
+
+        if w == BLAKE3_AIR_WIDTH:
+            err, plain = plain_by_columns(torch, plain_ntt, x, got,
+                                          f"ntt {log_n} {w}")
+        else:
+            err = compare(f"ntt {log_n} {w}", got, plain_ntt(x))
         steps = nc.plan(log_n, zero_top)
         planned = {f"ntt_{k}": sum(s.kernel == k for s in steps)
                    for k in ("k1", "k2")}
@@ -764,6 +826,8 @@ def phase_kernels(torch, np, card):
         rec = {"log_n": log_n, "w": w, "inverse": inverse,
                "zero_top": zero_top, "k1_launches": ran["ntt_k1"],
                "k2_launches": ran["ntt_k2"], "max_abs_err": err}
+        if w == BLAKE3_AIR_WIDTH:
+            rec["plain_columns"] = PLAIN_NTT_COLUMNS
         if log_n in (17, 18):
             n = 1 << log_n
             s1, s2 = steps
@@ -777,8 +841,8 @@ def phase_kernels(torch, np, card):
             k2, k2_src = profiled_ms(torch, run2, 10, "ntt_kernel<")
             k1_wall, k2_wall = cuda_ms(torch, run1, 10), cuda_ms(torch, run2,
                                                                  10)
-            plain = cuda_ms(torch, lambda: nc.dif_fused_plain(
-                F, x, log_n, inverse, zero_top), 2)
+            if w != BLAKE3_AIR_WIDTH:
+                plain = cuda_ms(torch, lambda: plain_ntt(x), 2)
             b1 = ntt_bound(card, "k1", log_a, log_b, w, zero_top)
             b2 = ntt_bound(card, "k2", log_a, log_b, w, zero_top)
             sh1, sh2 = share("ntt_k1", b1[0], k1), share("ntt_k2", b2[0], k2)
@@ -799,30 +863,47 @@ def phase_kernels(torch, np, card):
                         wall_ms=wall, plain_ms=plain,
                         bound_ms=b[0], bound_by=b[1], library_ms=None,
                         share=sh, shape=[log_n, w, "zero_top"])
-            if (log_n, w) == (18, KECCAK_AIR_WIDTH):
+            if log_n == 18 and w in AIR_WIDTHS:
                 for name, ms, ms_src, wall, b, sh in (
                         ("ntt_k1", k1, k1_src, k1_wall, b1, sh1),
                         ("ntt_k2", k2, k2_src, k2_wall, b2, sh2)):
                     records[name].update(at_width(
-                        err, ms, ms_src, wall, plain, b, sh,
+                        AIR_WIDTHS[w], err, ms, ms_src, wall, plain, b, sh,
                         [log_n, w, "zero_top"]))
+            del y1, out
         emit({"phase": "kernels", "kernel": "ntt", **rec})
+        del x, got
 
+    # the leaf sponge; at the Blake3 width the kernel runs over all 2^18
+    # rows and its first PLAIN_SPONGE_ROWS rows are held against the plain
+    # version (a row's digest reads that row alone)
     src = "plonky3_tpu_torch/csrc/keccak.cu"
     for h, w in [(1 << 18, 1312), (1 << 18, KECCAK_AIR_WIDTH),
+                 (1 << 18, BLAKE3_AIR_WIDTH),
                  (1 << 18, 8), (1 << 18, 32), (1, 3),
                  (5, 35), (300, 34), (7, 1)]:
-        flat = _rand_words(torch, rng, (h, w), F.P)
+        flat = (_rand_words_device(torch, w, (h, w), F.P)
+                if w == BLAKE3_AIR_WIDTH else
+                _rand_words(torch, rng, (h, w), F.P))
         got = kc.keccak_sponge_rows(flat)
-        want = kc.keccak_sponge_rows_plain(flat)
-        err = compare(f"sponge {h} {w}", got, want)
-        rec = {"h": h, "w": w, "max_abs_err": err}
+        rec = {"h": h, "w": w}
+        if w == BLAKE3_AIR_WIDTH:
+            rows = flat[:PLAIN_SPONGE_ROWS]
+            want, plain = once_ms(torch,
+                                  lambda: kc.keccak_sponge_rows_plain(rows))
+            err = compare(f"sponge {h} {w}", got[:PLAIN_SPONGE_ROWS], want)
+            rec.update(plain_rows=PLAIN_SPONGE_ROWS)
+        else:
+            want = kc.keccak_sponge_rows_plain(flat)
+            err = compare(f"sponge {h} {w}", got, want)
+        rec["max_abs_err"] = err
         if h >= 1 << 18:
             run = lambda: kc.keccak_sponge_rows(flat)  # noqa: E731
             ms, ms_src = profiled_ms(torch, run, 10, "sponge_rows_kernel")
             wall = cuda_ms(torch, run, 10)
-            plain = cuda_ms(torch, lambda: kc.keccak_sponge_rows_plain(flat),
-                            1)
+            if w != BLAKE3_AIR_WIDTH:
+                plain = cuda_ms(
+                    torch, lambda: kc.keccak_sponge_rows_plain(flat), 1)
             b = sponge_bound(card, h, w)
             rec.update(ms=ms, ms_source=ms_src, wall_ms=wall, plain_ms=plain,
                        bound_ms=b[0], bound_by=b[1],
@@ -835,10 +916,12 @@ def phase_kernels(torch, np, card):
                     plain_ms=plain, bound_ms=b[0],
                     bound_by=b[1], library_ms=None, share=rec["share"],
                     shape=[h, w])
-            elif w == KECCAK_AIR_WIDTH:
+            elif w in AIR_WIDTHS:
                 records["keccak_sponge"].update(at_width(
-                    err, ms, ms_src, wall, plain, b, rec["share"], [h, w]))
+                    AIR_WIDTHS[w], err, ms, ms_src, wall, plain, b,
+                    rec["share"], [h, w]))
         emit({"phase": "kernels", "kernel": "keccak_sponge", **rec})
+        del flat, got, want
 
     for h in [1 << 17, 1, 3, 1000]:
         left = _rand_words(torch, rng, (h, 8), 1 << 32)
@@ -1202,16 +1285,24 @@ def phase_small(torch, np):
 
 
 def _air_workload(np, name, device, log_n=None, perms=None):
-    """(air, trace, public values) of FibonacciAir at 2^log_n rows or of
-    KeccakAir over `perms` permutations, the inputs from
-    np.random.default_rng(1) as the reference CLI makes them."""
+    """(air, trace, public values) of FibonacciAir at 2^log_n rows, of
+    Blake3Air over 2^log_n compressions or of KeccakAir over `perms`
+    permutations, the inputs from np.random.default_rng(1) as the
+    reference CLI makes them (plonky3_tpu/cli.py:125-156)."""
     from plonky3_tpu_torch.fields import KoalaBear as F
-    from plonky3_tpu_torch.models import fibonacci, keccak_air
+    from plonky3_tpu_torch.models import blake3_air, fibonacci, keccak_air
 
     if name == "fibonacci":
         trace, publics = fibonacci.generate_fibonacci_trace(F, log_n,
                                                             device=device)
         return fibonacci.FibonacciAir(F), trace, publics
+    if name == "blake3":
+        inputs = np.random.default_rng(1).integers(
+            0, 1 << 32, size=(1 << log_n, 24),
+            dtype=np.uint64).astype(np.uint32)
+        return (blake3_air.Blake3Air(F),
+                blake3_air.generate_blake3_trace(F, inputs, device=device),
+                [])
     inputs = np.random.default_rng(1).integers(0, 1 << 64, size=(perms, 25),
                                                dtype=np.uint64)
     return (keccak_air.KeccakAir(F),
@@ -1275,6 +1366,136 @@ def phase_keccak_air_small(torch, np):
             raise AssertionError(f"verify accepted the {name} probe {probe}")
     emit({"phase": "keccak_air_small", "cuda_equals_cpu": True,
           "fast_equals_prove": True, **out, **secs})
+
+
+SMALL_PARAMS = dict(log_blowup=1, log_final_poly_len=0, max_log_arity=3,
+                    num_queries=10, commit_proof_of_work_bits=0,
+                    query_proof_of_work_bits=8)
+
+
+def _cuda_equals_cpu(torch, name, make, publics, params, secs):
+    """Both provers on CUDA and on the CPU (plain versions) under the
+    keccak config, each proof verified; all four must be equal. make(dev)
+    gives (air, trace). Returns (air, config, the CUDA fast proof, the
+    blocks the CUDA fast prove's quotient folded)."""
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.stark import prover as stark_prover
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+    from plonky3_tpu_torch.stark.fast_prover import _prove_device_fs
+    from plonky3_tpu_torch.stark.verifier import verify
+
+    proofs, blocks = {}, None
+    for dev in ("cuda", "cpu"):
+        air, trace = make(dev)
+        config = keccak_stark_config(F, E, params, device=dev)
+        for fn_name, fn in (("prove", stark_prover.prove),
+                            ("fast", _prove_device_fs)):
+            before = stark_prover.FOLD_BLOCKS["count"]
+            t0 = time.perf_counter()
+            proof = fn(config, air, trace, publics)
+            torch.cuda.synchronize()
+            secs[f"{name}_{fn_name}_{dev}_s"] = time.perf_counter() - t0
+            if (fn_name, dev) == ("fast", "cuda"):
+                blocks = stark_prover.FOLD_BLOCKS["count"] - before
+                cuda_proof, cuda_config, cuda_air = proof, config, air
+            verify(config, air, proof, publics)  # raises on a rejection
+            proofs[fn_name, dev] = as_plain(proof)
+    if len(set(proofs.values())) != 1:
+        raise AssertionError(f"the small {name} proofs differ: "
+                             f"{sorted(proofs, key=proofs.get)}")
+    return cuda_air, cuda_config, cuda_proof, blocks
+
+
+def phase_blake3_air_small(torch, np):
+    """Blake3Air (9,168 columns) at 2^8 rows: both provers on the card
+    equal both on the CPU, every proof verified, and a changed
+    trace_next[0] rejected with InvalidOpeningArgument."""
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark.verifier import (InvalidOpeningArgument,
+                                                  verify)
+
+    log_n, secs = 8, {}
+    air, config, proof, blocks = _cuda_equals_cpu(
+        torch, "blake3",
+        lambda dev: _air_workload(np, "blake3", dev, log_n=log_n)[:2], [],
+        FriParameters(**SMALL_PARAMS), secs)
+    bad = copy.deepcopy(proof)
+    _bump_trace_next(bad, E)
+    try:
+        verify(config, air, bad, [])
+    except InvalidOpeningArgument as e:
+        raised = {"raised": type(e).__name__, "message": str(e)}
+    else:
+        raise AssertionError("verify accepted the blake3 probe trace_next")
+    emit({"phase": "blake3_air_small", "rows": 1 << log_n,
+          "width": air.width, "cuda_equals_cpu": True,
+          "fast_equals_prove": True, "verified": 4, "fold_blocks": blocks,
+          "probe": "trace_next", **raised, **secs})
+
+
+# one period of each periodic column of the periodic AIRs (the model of
+# tests/test_periodic.py and uni-stark/tests/periodic_air.rs)
+PATTERN = (1, 7, 3, 9)
+MASK = (5, 11)
+
+
+def _periodic_airs():
+    """(PeriodicAir, NoNextRowAir): col0 equals the period-4 pattern and
+    col1 = col0 · mask (period 2); the second declares that it reads no
+    next row, so its quotient folds in the committed bit-reversed order
+    and its trace opens at zeta alone."""
+    from plonky3_tpu_torch.air.api import BaseAir
+
+    class PeriodicAir(BaseAir):
+        width = 2
+        num_public_values = 0
+
+        def __init__(self, field):
+            self.field = field
+
+        def periodic_columns(self):
+            return [list(PATTERN), list(MASK)]
+
+        def eval(self, b):
+            local = b.main.local
+            b.assert_zero(local[0] - b.periodic[0])
+            b.assert_zero(local[1] - local[0] * b.periodic[1])
+
+    class NoNextRowAir(PeriodicAir):
+        def main_next_row_columns(self):
+            return []
+
+    return PeriodicAir, NoNextRowAir
+
+
+def phase_periodic(torch, np):
+    """Periodic columns on the card at 2^8 rows: PeriodicAir and
+    NoNextRowAir (the bit-reversed fold), both provers on CUDA equal to
+    both on the CPU, every proof verified; the no-next-row proof opens
+    no next row."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fri.config import FriParameters
+
+    log_n, secs, out = 8, {}, {}
+    n = 1 << log_n
+    rows = np.array([[PATTERN[i % 4], PATTERN[i % 4] * MASK[i % 2]]
+                     for i in range(n)], dtype=np.uint32)
+    monty = F.to_monty_np(rows).astype(np.int64)
+    for cls in _periodic_airs():
+        _, _, proof, blocks = _cuda_equals_cpu(
+            torch, cls.__name__,
+            lambda dev: (cls(F), torch.from_numpy(monty).to(dev)), [],
+            FriParameters(**SMALL_PARAMS), secs)
+        opens_next = proof.opened_values.trace_next is not None
+        if opens_next != (cls.__name__ == "PeriodicAir"):
+            raise AssertionError(f"{cls.__name__}: opens the next row "
+                                 f"{opens_next}")
+        out[cls.__name__] = {"opens_next_row": opens_next,
+                             "fold_blocks": blocks}
+    emit({"phase": "periodic", "rows": n, "cuda_equals_cpu": True,
+          "fast_equals_prove": True, "verified": 8, **out, **secs})
 
 
 # the kernels the main path must launch
@@ -1477,7 +1698,7 @@ def device_fs_phase(torch, kernels, card, phase, workload, path, stray,
     Returns its launches, per-proof bounds, profiled device time by
     kernel and the recorded launches of one prove."""
     from plonky3_tpu_torch.stark import fast_prover as fp
-    from plonky3_tpu_torch.stark.prover import prove
+    from plonky3_tpu_torch.stark.prover import FOLD_BLOCKS, prove
 
     config, air, trace = workload
     params = config.pcs.fri
@@ -1486,10 +1707,11 @@ def device_fs_phase(torch, kernels, card, phase, workload, path, stray,
     torch.cuda.reset_peak_memory_stats()
     first, cold_s = timed(fp._prove_device_fs)
     kernels.reset_launches()
-    pulls = fp.PULLS["count"]
+    pulls, blocks = fp.PULLS["count"], FOLD_BLOCKS["count"]
     proof, warm_s = timed(fp._prove_device_fs)
     launches = dict(kernels.LAUNCHES)
     pulls = fp.PULLS["count"] - pulls
+    blocks = FOLD_BLOCKS["count"] - blocks
     peak_mem = torch.cuda.max_memory_allocated()
     missing = [k for k in path if launches[k] == 0]
     launched = [k for k in stray if launches[k]]
@@ -1516,6 +1738,8 @@ def device_fs_phase(torch, kernels, card, phase, workload, path, stray,
           "cold_prove_s": cold_s, "warm_prove_s": warm_s,
           "cold_host_transcript_prove_s": prove_cold_s,
           "perms_per_s": info["perms"] / fast_s, "peak_mem_bytes": peak_mem,
+          "fold_blocks": blocks,
+          "fold_block_rows": FOLD_BLOCKS["rows"] if blocks else None,
           "pulls": pulls, "launches": launches,
           "warm_fast_s_turns": turns["fast"],
           "warm_prove_s_turns": turns["prove"], "fast_median_s": fast_s,
@@ -1598,9 +1822,9 @@ def phase_keccak_air(torch, np, kernels, card):
     width: 5,461 permutations, a 2^17 x 2,633 KeccakAir trace (generated
     once), keccak_stark_config, new_benchmark_high_arity(), through
     `device_fs_phase` (probes: a changed opened trace value, commit-phase
-    sibling digest and next-row value), then the transcript chain call by
-    call. Returns its launches, per-proof bounds and profiled device time
-    by kernel."""
+    sibling digest and next-row value; two warm turns of each prover),
+    then the transcript chain call by call. Returns its launches,
+    per-proof bounds and profiled device time by kernel."""
     from plonky3_tpu_torch.fields import KoalaBear as F
     from plonky3_tpu_torch.fields import KoalaBearExt4 as E
     from plonky3_tpu_torch.fri.config import FriParameters
@@ -1620,11 +1844,51 @@ def phase_keccak_air(torch, np, kernels, card):
         F, E, FriParameters.new_benchmark_high_arity(), device="cuda")
     out = device_fs_phase(
         torch, kernels, card, "keccak_air", (config, air, trace), FAST_PATH,
-        (), ("prove", "fast", "fast", "prove", "prove", "fast"),
+        (), ("prove", "fast", "fast", "prove"),
         ("trace_local", "commit_phase_sibling_digest", "trace_next"),
         {"rows": 1 << log_n, "width": air.width, "perms": perms,
          "trace_gen_s": gen_s})
     emit({"phase": "keccak_air_chain_calls",
+          "calls": [{"n": a[2], "k": a[3], "us": ms * 1e3,
+                     "bound_us": chain_bound(card, a[2], a[3])[0] * 1e3}
+                    for fn, a, ms in out.pop("calls")
+                    if fn == "keccak256_chain"]})
+    return out
+
+
+def phase_blake3_air(torch, np, kernels, card):
+    """The blake3-permutations objective of the reference CLI at full
+    width (`--objective blake3-permutations --merkle-hash keccak-f
+    --prover fast --log-trace-length 17`): 131,072 compressions, a 2^17 x
+    9,168 Blake3Air trace (built and moved in row blocks), keccak config,
+    new_benchmark_high_arity(), through `device_fs_phase` with the
+    generic quotient folded by row blocks straight from the committed
+    LDE (probes: a changed opened trace value, commit-phase sibling
+    digest and next-row value; two warm turns of each prover), then the
+    transcript chain call by call. Returns its launches, per-proof bounds
+    and profiled device time by kernel."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+
+    log_n = 17
+    t0 = time.perf_counter()
+    air, trace, _ = _air_workload(np, "blake3", "cuda", log_n=log_n)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if air.width != BLAKE3_AIR_WIDTH or trace.shape != (1 << log_n,
+                                                        BLAKE3_AIR_WIDTH):
+        raise AssertionError(f"Blake3Air trace {tuple(trace.shape)}")
+    config = keccak_stark_config(
+        F, E, FriParameters.new_benchmark_high_arity(), device="cuda")
+    out = device_fs_phase(
+        torch, kernels, card, "blake3_air", (config, air, trace), FAST_PATH,
+        (), ("prove", "fast", "fast", "prove"),
+        ("trace_local", "commit_phase_sibling_digest", "trace_next"),
+        {"rows": 1 << log_n, "width": air.width, "perms": 1 << log_n,
+         "compressions": 1 << log_n, "trace_gen_s": gen_s})
+    emit({"phase": "blake3_air_chain_calls",
           "calls": [{"n": a[2], "k": a[3], "us": ms * 1e3,
                      "bound_us": chain_bound(card, a[2], a[3])[0] * 1e3}
                     for fn, a, ms in out.pop("calls")
@@ -1812,15 +2076,19 @@ def main(argv=None) -> int:
     mixed = timed("mixed", phase_mixed, torch, np, kernels)
     timed("small", phase_small, torch, np)
     timed("keccak_air_small", phase_keccak_air_small, torch, np)
+    timed("blake3_air_small", phase_blake3_air_small, torch, np)
+    timed("periodic", phase_periodic, torch, np)
     full = timed("full", phase_full, torch, np, kernels, card)
     fast = timed("fast", phase_fast, torch, np, kernels, card, full)
     p2 = timed("poseidon2", phase_poseidon2, torch, np, kernels, card)
     kair = timed("keccak_air", phase_keccak_air, torch, np, kernels, card)
+    b3 = timed("blake3_air", phase_blake3_air, torch, np, kernels, card)
     # launches, proof_* : the main path (the fast prover) of the kernel's
     # config, keccak or (the duplex transcript's kernels) Poseidon2;
     # *_prove: the keccak config's prove(); *_poseidon2: the NTT kernels
-    # on the Poseidon2 path; *_keccak_air: the fast prover's kernels on
-    # the keccak-AIR path (2^17 x 2,633, keccak config). proof_ms: the
+    # on the Poseidon2 path; *_keccak_air, *_blake3_air: the fast
+    # prover's kernels on the keccak-AIR path (2^17 x 2,633) and the
+    # Blake3-AIR path (2^17 x 9,168), keccak config. proof_ms: the
     # kernel's launches of one prove timed by CUDA events;
     # proof_profiled_ms: by torch.profiler, where it recorded every
     # launch. Every per-proof share goes through share().
@@ -1837,6 +2105,8 @@ def main(argv=None) -> int:
         if name in FAST_PATH:
             paths.append(("_keccak_air", kair))
             rec["launches_keccak_air"] = kair["launches"][name]
+            paths.append(("_blake3_air", b3))
+            rec["launches_blake3_air"] = b3["launches"][name]
         rec["launches"] = main["launches"][name]
         for key, got in paths:
             if name not in got["per_proof"]:

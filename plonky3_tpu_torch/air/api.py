@@ -5,7 +5,8 @@ air/src/symbolic/builder.rs:105,166 and air/src/check_constraints.rs:429).
 An AIR sets `width` and implements `eval(builder)`; the same `eval` gives
 its constraint count and degrees (`get_symbolic_layout`), the prover's
 fold over the quotient domain, the verifier's fold at zeta and the debug
-check of a trace.
+check of a trace. Periodic columns (air/src/air.rs:28-99) are values
+that both sides derive from the AIR, never committed: `builder.periodic`.
 """
 
 from __future__ import annotations
@@ -30,15 +31,22 @@ class BaseAir:
         pass."""
         return None
 
+    def periodic_columns(self):
+        """Periodic tables (air/src/air.rs:36-62): lists of standard-form
+        ints, each of a power-of-two length dividing the trace length."""
+        return []
+
     def main_next_row_columns(self):
         """Columns whose next-row entries the constraints read; None means
         all (the trace opens at zeta and zeta·g)."""
         return None
 
 
-def _make_builder(backend, width, num_public, entry, public_entry):
+def _make_builder(backend, width, num_public, entry, public_entry,
+                  num_periodic=0, periodic_entry=None):
     """The builder over `backend`: entry(kind, j) gives the value of
-    local/next column j or of a selector (kind is its name, j 0)."""
+    local/next column j or of a selector (kind is its name, j 0), and
+    periodic_entry(j) that of periodic column j."""
     main = RowWindow(
         local=[Sym(backend, entry("local", j)) for j in range(width)],
         next=[Sym(backend, entry("next", j)) for j in range(width)],
@@ -49,6 +57,8 @@ def _make_builder(backend, width, num_public, entry, public_entry):
         is_first_row=Sym(backend, entry("is_first_row", 0)),
         is_last_row=Sym(backend, entry("is_last_row", 0)),
         is_transition=Sym(backend, entry("is_transition", 0)),
+        periodic=[Sym(backend, periodic_entry(j))
+                  for j in range(num_periodic)],
     )
 
 
@@ -57,21 +67,34 @@ def _make_builder(backend, width, num_public, entry, public_entry):
 _LAYOUTS = weakref.WeakKeyDictionary()
 
 
-def get_symbolic_layout(air: BaseAir):
-    """(number of constraints, max constraint degree) by the symbolic
-    pass over `air.eval`."""
+def _symbolic_pass(air: BaseAir):
     hit = _LAYOUTS.get(air)
     if hit is not None:
         return hit
     backend = SymbolicBackend()
     builder = _make_builder(
         backend, air.width, air.num_public_values,
-        lambda kind, j: 0 if kind == "is_transition" else 1, lambda j: 0)
+        lambda kind, j: 0 if kind == "is_transition" else 1, lambda j: 0,
+        num_periodic=len(air.periodic_columns()),
+        periodic_entry=lambda j: 1)  # f(X^r) has degree below n
     air.eval(builder)
     degs = backend.constraint_degrees
-    out = (len(degs), max(degs) if degs else 0)
+    out = ((len(degs), max(degs) if degs else 0), backend.widest)
     _LAYOUTS[air] = out
     return out
+
+
+def get_symbolic_layout(air: BaseAir):
+    """(number of constraints, max constraint degree) by the symbolic
+    pass over `air.eval`."""
+    return _symbolic_pass(air)[0]
+
+
+def get_widest_stack(air: BaseAir) -> int:
+    """The most values one stacked Sym of `air.eval` holds (1 for an AIR
+    that stacks nothing): the widest temporary of the prover's fold, in
+    values a row."""
+    return _symbolic_pass(air)[1]
 
 
 def get_log_num_quotient_chunks(air: BaseAir) -> int:
@@ -108,8 +131,12 @@ def check_constraints(air: BaseAir, trace_std: np.ndarray, public_values):
             return nxt[:, j]
         return sels[kind]
 
+    pcols = air.periodic_columns()
     builder = _make_builder(
         backend, air.width, air.num_public_values, entry,
-        lambda j: np.full(n, public_values[j] % air.field.P, np.uint64))
+        lambda j: np.full(n, public_values[j] % air.field.P, np.uint64),
+        num_periodic=len(pcols),
+        periodic_entry=lambda j: np.asarray(
+            pcols[j], np.uint64)[np.arange(n) % len(pcols[j])])
     air.eval(builder)
     return backend.failures

@@ -19,9 +19,9 @@ backend; the backend decides what a value is:
 
 A filter (`when`, `when_first_row`, `when_last_row`, `when_transition`)
 multiplies every constraint emitted through it, filter on the left, as
-in the reference. Extension-field constraints (`assert_zero_ext`),
-periodic columns and bus interactions come with the first AIR that
-needs them (ROADMAP M15, M17).
+in the reference. `builder.periodic` holds the AIR's periodic columns.
+Extension-field constraints (`assert_zero_ext`) and bus interactions
+come with the first AIR that needs them (ROADMAP M15, M17).
 """
 
 from __future__ import annotations
@@ -110,13 +110,14 @@ class AirBuilder:
     """The object handed to `air.eval`."""
 
     def __init__(self, backend, main: RowWindow, public_values,
-                 is_first_row, is_last_row, is_transition):
+                 is_first_row, is_last_row, is_transition, periodic=()):
         self.backend = backend
         self.main = main
         self.public_values = public_values  # [Sym]
         self.is_first_row = is_first_row  # Sym
         self.is_last_row = is_last_row
         self.is_transition = is_transition
+        self.periodic = list(periodic)  # [Sym] the periodic columns
         self._filter = None  # a Sym that multiplies every constraint
 
     # -- constraint emission ---------------------------------------------
@@ -150,7 +151,7 @@ class AirBuilder:
     def when(self, condition) -> "AirBuilder":
         child = AirBuilder(self.backend, self.main, self.public_values,
                            self.is_first_row, self.is_last_row,
-                           self.is_transition)
+                           self.is_transition, self.periodic)
         child._filter = (condition if self._filter is None
                          else self._filter * condition)
         return child
@@ -166,10 +167,12 @@ class AirBuilder:
 
 
 class SymbolicBackend:
-    """Degrees; records each constraint's degree in emission order."""
+    """Degrees; records each constraint's degree in emission order, and
+    in `widest` the most values a stacked value holds."""
 
     def __init__(self):
         self.constraint_degrees = []
+        self.widest = 1
 
     def const(self, c):
         return 0
@@ -189,7 +192,9 @@ class SymbolicBackend:
         self.constraint_degrees.append(deg)
 
     def stack(self, vals):
-        return list(vals)
+        out = list(vals)
+        self.widest = max(self.widest, len(_flatten(out, [])))
+        return out
 
     def emit_block(self, v, count):
         flat = _flatten(v, [])

@@ -86,6 +86,10 @@ class TwoAdicFriPcs:
     mmcs: object  # base-field input commitments
     fri_mmcs: object  # extension commit-phase commitments
 
+    # the committed LDE is kept in bit-reversed row order, so the quotient
+    # domain's rows are its prefix (`get_evaluations_on_domain` 'bitrev')
+    supports_bitrev_evals = True
+
     def natural_domain_for_degree(self, degree: int) -> TwoAdicCoset:
         return TwoAdicCoset(self.F, 1, log2_strict(degree))
 

@@ -61,7 +61,7 @@ from ..ops.ntt import coset_lde_batch, idft, powers_device
 from ..utils.bits import bitrev_permute_axis0, log2_strict
 from ..utils.timing import stage_timer
 from .proof import Commitments, OpenedValues, Proof
-from .prover import prove, quotient_values
+from .prover import prove, quotient_of_commitment
 
 # device-to-host copies made by `_pull`, for the tests and chip_smoke.py
 PULLS = {"count": 0}
@@ -226,20 +226,12 @@ def _device_body_p1(config, air, trace, publics_m, meta, mark):
     # ---- quotient ----
     quotient_domain = trace_domain.create_disjoint_domain(n * num_chunks)
     uses_next = air.main_next_row_columns() != []
-    q_order = "natural" if uses_next else "bitrev"
-    trace_on_qd = pcs.get_evaluations_on_domain(trace_data, 0,
-                                                quotient_domain,
-                                                order=q_order)
     num_constraints, _ = get_symbolic_layout(air)
     ap_log = max(1, (num_constraints - 1).bit_length())
     alpha_pows = _ext_powers_device(E, alpha_m, ap_log)[
         :num_constraints].flip(0)
-    q_vals = quotient_values(config, air, trace_domain, quotient_domain,
-                             trace_on_qd, publics_m, alpha_pows,
-                             rows_order=q_order)
-    del trace_on_qd
-    if q_order == "bitrev":
-        q_vals = bitrev_permute_axis0(q_vals, quotient_domain.log_n)
+    q_vals = quotient_of_commitment(config, air, trace_data, trace_domain,
+                                    quotient_domain, publics_m, alpha_pows)
     mark("quotient eval")
     sub_evals = quotient_domain.split_evals(num_chunks, q_vals)
     sub_domains = quotient_domain.split_domains(num_chunks)

@@ -11,6 +11,8 @@ The proof runs on the device of the trace.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -19,68 +21,251 @@ from ..air.api import (
     _make_builder,
     get_log_num_quotient_chunks,
     get_symbolic_layout,
+    get_widest_stack,
 )
 from ..air.builder import ProverBackend
-from ..utils.bits import bitrev_permute_axis0, log2_strict
+from ..ops.ntt import coset_evals_from_coeffs
+from ..utils.bits import bitrev_indices, bitrev_permute_axis0, log2_strict
 from ..utils.timing import stage_timer
 from .config import StarkConfig
 from .proof import Commitments, OpenedValues, Proof
 
+# blocks of quotient-domain rows folded so far and the rows of the last
+# one (read by the tests and chip_smoke.py)
+FOLD_BLOCKS = {"count": 0, "rows": 0}
+
+# What one row of a fold block costs in int64 values: _ROW_COPIES of the
+# AIR's width (the block's transposed rows, one copy) and _STACK_COPIES
+# of its widest stacked Sym (the stacks built from it, their products
+# and the Montgomery temporaries). fold_sweep.py measured 230 KB a row
+# for Blake3Air (9,168 columns, widest stack 1,792), 8·(9,168 +
+# 10.9·1,792), and 31 KB for KeccakAir (2,633, 100), 8·(2,633 +
+# 12.6·100), on an H100 80GB HBM3 at a 700 W power limit; the constants
+# hold 1.4 and 1.7 times that. A block takes at most _MEMORY_SHARE of
+# the free memory.
+_ROW_COPIES = 2
+_STACK_COPIES = 12
+_MEMORY_SHARE = 0.6
+
+
+def _free_bytes(device) -> int:
+    """Free memory of `device`: the driver's free memory plus the caching
+    allocator's unused blocks on the card; the available physical memory
+    on the host."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return (free + torch.cuda.memory_reserved(device)
+                - torch.cuda.memory_allocated(device))
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def fold_block_rows(air: BaseAir, nq: int, device) -> int:
+    """Rows of one fold block: the largest power of two, at most nq,
+    whose temporaries (`_ROW_COPIES` of the AIR's width and
+    `_STACK_COPIES` of its widest stack, int64 values) fit in
+    `_MEMORY_SHARE` of the device's free memory."""
+    per_row = 8 * (_ROW_COPIES * air.width
+                   + _STACK_COPIES * get_widest_stack(air))
+    rows = max(1, int(_free_bytes(device) * _MEMORY_SHARE) // per_row)
+    return min(nq, 1 << (rows.bit_length() - 1))
+
+
+def periodic_coeffs(F, col):
+    """The coefficients of one period of a periodic column (standard form,
+    its inverse DFT exactly on the host)."""
+    p = len(col)
+    log_p = log2_strict(p)
+    g_inv = F.inv_h(F.two_adic_generator_h(log_p)) if p > 1 else 1
+    p_inv = F.inv_h(p)
+    coeffs = []
+    for k in range(p):
+        acc, x, xp = 0, F.exp_h(g_inv, k), 1
+        for i in range(p):
+            acc = (acc + col[i] * xp) % F.P
+            xp = F.mul_h(xp, x)
+        coeffs.append(F.mul_h(acc, p_inv))
+    return coeffs
+
+
+def periodic_on_coset(F, pcols, trace_domain, quotient_domain, device):
+    """(Nq, k) Montgomery values of each periodic column's extension
+    f(X^r) over the quotient coset, natural order; None without periodic
+    columns (prover.rs:434 build_periodic_lde_table). f has period p and
+    r = n/p: over the coset s·<g_Nq> the values cycle with period Nq/r,
+    so one small coset evaluation tiles the domain."""
+    if not pcols:
+        return None
+    n, nq = trace_domain.size, quotient_domain.size
+    cols = []
+    for col in pcols:
+        p = len(col)
+        if p > n or n % p:
+            raise ValueError(f"a period of {p} rows does not divide {n}")
+        r = n // p
+        small = nq // r
+        cm = torch.from_numpy(F.to_monty_np(np.asarray(
+            periodic_coeffs(F, col), dtype=np.uint32)).astype(np.int64))
+        ev_br = coset_evals_from_coeffs(
+            F, cm.reshape(p, 1).to(device), log2_strict(small // p),
+            F.exp_h(quotient_domain.shift, r))
+        ev = bitrev_permute_axis0(ev_br, log2_strict(small))[:, 0]
+        cols.append(ev.repeat(r))
+    return torch.stack(cols, dim=1)
+
 
 def quotient_values(config: StarkConfig, air: BaseAir, trace_domain,
                     quotient_domain, trace_on_quotient_domain, publics_m,
-                    alpha_pows, rows_order: str = "natural"):
-    """C(T(x), T(hx), sels(x)) / Z_H(x) over the quotient domain: (Nq, D).
+                    alpha_pows, rows_order: str = "natural",
+                    block_rows=None):
+    """C(T(x), T(hx), sels(x)) / Z_H(x) over the quotient domain: (Nq, D)
+    in the order of the (Nq, w) rows.
 
     rows_order 'bitrev': the rows come in the committed bit-reversed
     order (a prefix of the LDE) and the output stays in that order; only
     for AIRs that read no next row. An AIR with `fold_constraints_device`
     folds its constraints itself; any other runs its `eval` over the
-    `ProverBackend` (prover.rs:399-555, the whole domain at once)."""
+    `ProverBackend` block by block (`_fold_blocks`; prover.rs:399-555)."""
+    if rows_order == "bitrev" and air.main_next_row_columns() != []:
+        raise ValueError("bitrev rows need an AIR without next rows")
+    return _quotient(config, air, trace_domain, quotient_domain,
+                     trace_on_quotient_domain, rows_order, rows_order,
+                     publics_m, alpha_pows, block_rows)
+
+
+def committed_quotient(config: StarkConfig, air: BaseAir, trace_domain,
+                       quotient_domain, lde_prefix, publics_m, alpha_pows,
+                       block_rows=None):
+    """The quotient in natural order, (Nq, D), from the committed
+    bit-reversed LDE rows of the quotient domain (natural row i is row
+    bitrev(i) of `lde_prefix`), without a whole-domain copy of them. A
+    fold that reads no next row (an AIR that declares none, or the AIR's
+    own `fold_constraints_device`) takes them in their own order, in
+    slices; any other gathers each block's rows and next rows from
+    them."""
+    if (hasattr(air, "fold_constraints_device")
+            or air.main_next_row_columns() == []):
+        q = _quotient(config, air, trace_domain, quotient_domain,
+                      lde_prefix, "bitrev", "bitrev", publics_m,
+                      alpha_pows, block_rows)
+        return bitrev_permute_axis0(q, quotient_domain.log_n)
+    return _quotient(config, air, trace_domain, quotient_domain, lde_prefix,
+                     "bitrev", "natural", publics_m, alpha_pows, block_rows)
+
+
+def _quotient(config, air, trace_domain, quotient_domain, rows, rows_order,
+              fold_order, publics_m, alpha_pows, block_rows):
+    """The quotient over `rows` (in rows_order), folded and returned in
+    fold_order."""
     F, E = config.F, config.E
-    sels = trace_domain.selectors_on_coset_device(
-        quotient_domain, trace_on_quotient_domain.device)
-    if rows_order == "bitrev":
-        if air.main_next_row_columns() != []:
-            raise ValueError("bitrev rows need an AIR without next rows")
+    nq, device = quotient_domain.size, rows.device
+    if rows.shape[0] != nq:
+        raise ValueError(f"{rows.shape[0]} rows for a domain of {nq}")
+    sels = trace_domain.selectors_on_coset_device(quotient_domain, device)
+    periodic = periodic_on_coset(F, air.periodic_columns(), trace_domain,
+                                 quotient_domain, device)
+    if fold_order == "bitrev":
         sels = {k: bitrev_permute_axis0(v, quotient_domain.log_n)
                 for k, v in sels.items()}
+        if periodic is not None:
+            periodic = bitrev_permute_axis0(periodic, quotient_domain.log_n)
     if hasattr(air, "fold_constraints_device"):
         # the folds that exist read no next row (Poseidon2VectorAir), so
         # the rolled copy of the rows is not built
-        folded = air.fold_constraints_device(
-            F, E, trace_on_quotient_domain, None, sels, publics_m,
-            alpha_pows)
+        if rows_order != fold_order:
+            raise ValueError("an AIR's own fold takes rows in its order")
+        folded = air.fold_constraints_device(F, E, rows, None, sels,
+                                             publics_m, alpha_pows)
     else:
-        step = (0 if rows_order == "bitrev"
-                else quotient_domain.size // trace_domain.size)
-        folded = _fold_generic(F, E, air, trace_on_quotient_domain, step,
-                               sels, publics_m, alpha_pows)
+        step = 0 if fold_order == "bitrev" else nq // trace_domain.size
+        src = (None if rows_order == fold_order else torch.from_numpy(
+            bitrev_indices(quotient_domain.log_n)).to(device))
+
+        def columns(a, b):
+            # rows a..b-1 of the fold's order (mod nq), transposed: one
+            # copy, gathered straight into the (w, b - a) layout
+            if src is None and b <= nq:
+                return rows[a:b].t().contiguous()
+            idx = torch.arange(a, b, device=device) % nq
+            if src is not None:
+                idx = src[idx]
+            return torch.index_select(rows.t(), 1, idx).contiguous()
+
+        if block_rows is None:
+            block_rows = fold_block_rows(air, nq, device)
+        folded = _fold_blocks(F, E, air, nq, step, columns, sels, periodic,
+                              publics_m, alpha_pows, block_rows)
     return E.base_mul(sels["inv_vanishing"], folded)
 
 
-def _fold_generic(F, E, air, rows, step, sels, publics_m, alpha_pows):
-    """The alpha-folded constraints of `air.eval` over (Nq, w) rows: (Nq,
-    D). The next row of x is `step` rows ahead, cyclically (the
-    reference's roll). The rows are copied once, transposed, with their
-    first `step` rows appended, so that every local and next column is a
-    contiguous view of that copy."""
-    nq, w = rows.shape
-    cols = rows.new_empty((w, nq + step))
-    cols[:, :nq] = rows.t()
-    cols[:, nq:] = rows[:step].t()
+def _fold_blocks(F, E, air, nq, step, columns, sels, periodic, publics_m,
+                 alpha_pows, block_rows):
+    """The alpha-folded constraints of `air.eval` over nq rows: (nq, D),
+    `block_rows` rows at a time. The next row of a row is `step` rows
+    ahead, cyclically (the reference's roll); columns(a, b) gives rows a
+    to b-1 (mod nq) transposed, a contiguous (w, b - a) tensor, so each
+    block's rows, with the `step` rows after it, are one copy in which
+    every local and next column is a contiguous view. `sels` (nq,) and
+    `periodic` (nq, k) are in the fold's row order. The fold of a row
+    reads no other row's, so the blocks give the whole domain's bits."""
+    if block_rows < 1 or nq % block_rows or block_rows & (block_rows - 1):
+        raise ValueError(f"a fold block of {block_rows} rows for {nq}")
+    out = None
+    for a in range(0, nq, block_rows):
+        b = a + block_rows
+        cols = columns(a, b + step)
+        part = _fold_block(
+            F, E, air, cols, step, {k: v[a:b] for k, v in sels.items()},
+            None if periodic is None else periodic[a:b].t().contiguous(),
+            publics_m, alpha_pows)
+        del cols
+        if out is None:
+            out = part.new_empty((nq, part.shape[1]))
+        out[a:b] = part
+        FOLD_BLOCKS["count"] += 1
+    FOLD_BLOCKS["rows"] = block_rows
+    return out
+
+
+def _fold_block(F, E, air, cols, step, sels, periodic, publics_m,
+                alpha_pows):
+    """One block: cols (w, B + step) transposed rows, sels (B,) and
+    periodic (k, B) for its B rows. Returns (B, D)."""
+    nb = cols.shape[1] - step
     backend = ProverBackend(F, E, alpha_pows)
 
     def entry(kind, j):
         if kind == "local":
-            return cols[j, :nq]
+            return cols[j, :nb]
         if kind == "next":
-            return cols[j, step:step + nq]
+            return cols[j, step:step + nb]
         return sels[kind]
 
-    air.eval(_make_builder(backend, air.width, air.num_public_values,
-                           entry, lambda j: publics_m[j]))
-    return backend.finalize((nq,))
+    air.eval(_make_builder(
+        backend, air.width, air.num_public_values, entry,
+        lambda j: publics_m[j],
+        num_periodic=0 if periodic is None else periodic.shape[0],
+        periodic_entry=lambda j: periodic[j]))
+    return backend.finalize((nb,))
+
+
+def quotient_of_commitment(config: StarkConfig, air: BaseAir, trace_data,
+                           trace_domain, quotient_domain, publics_m,
+                           alpha_pows):
+    """The prover's natural-order quotient (Nq, D) from the committed
+    trace: straight from the committed bit-reversed LDE where the PCS
+    lays it out so (`supports_bitrev_evals`, the reference's gate,
+    stark/prover.py:205-211), else from its natural-order evaluations."""
+    pcs = config.pcs
+    if getattr(pcs, "supports_bitrev_evals", False):
+        prefix = pcs.get_evaluations_on_domain(trace_data, 0,
+                                               quotient_domain,
+                                               order="bitrev")
+        return committed_quotient(config, air, trace_domain,
+                                  quotient_domain, prefix, publics_m,
+                                  alpha_pows)
+    rows = pcs.get_evaluations_on_domain(trace_data, 0, quotient_domain)
+    return quotient_values(config, air, trace_domain, quotient_domain, rows,
+                           publics_m, alpha_pows)
 
 
 def prove(config: StarkConfig, air: BaseAir, trace, public_values,
@@ -114,21 +299,13 @@ def prove(config: StarkConfig, air: BaseAir, trace, public_values,
 
     quotient_domain = trace_domain.create_disjoint_domain(n * num_chunks)
     uses_next = air.main_next_row_columns() != []
-    q_order = "natural" if uses_next else "bitrev"
-    trace_on_qd = pcs.get_evaluations_on_domain(trace_data, 0,
-                                                quotient_domain,
-                                                order=q_order)
     num_constraints, _ = get_symbolic_layout(air)
     alpha_pows = E.powers_np(alpha, num_constraints)[::-1].astype(np.int64)
     publics_m = torch.from_numpy(F.to_monty_np(np.asarray(
         public_values, dtype=np.uint32)).astype(np.int64)).to(device)
-    q_vals = quotient_values(config, air, trace_domain, quotient_domain,
-                             trace_on_qd, publics_m,
-                             torch.from_numpy(alpha_pows).to(device),
-                             rows_order=q_order)
-    del trace_on_qd
-    if q_order == "bitrev":
-        q_vals = bitrev_permute_axis0(q_vals, quotient_domain.log_n)
+    q_vals = quotient_of_commitment(config, air, trace_data, trace_domain,
+                                    quotient_domain, publics_m,
+                                    torch.from_numpy(alpha_pows).to(device))
     mark("quotient eval")
 
     # ext values -> D base columns, split into chunks, commit

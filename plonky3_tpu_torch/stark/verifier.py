@@ -16,6 +16,7 @@ from ..air.builder import VerifierBackend
 from ..fri.verifier import FriError
 from .config import StarkConfig
 from .proof import Proof
+from .prover import periodic_coeffs
 
 
 class VerificationError(Exception):
@@ -129,9 +130,20 @@ def verify(config: StarkConfig, air: BaseAir, proof: Proof, public_values):
             return E.zero_h() if ov.trace_next is None else ov.trace_next[j]
         return sels[kind]
 
+    pcols = air.periodic_columns()
+
+    def periodic_at_zeta(j):
+        # f(zeta^r) by Horner over the period's coefficients, r = n/p
+        z_r = E.exp_h(zeta, n // len(pcols[j]))
+        acc = E.zero_h()
+        for c in reversed(periodic_coeffs(F, pcols[j])):
+            acc = E.add_h(E.mul_h(acc, z_r), E.from_base_h(c))
+        return acc
+
     builder = _make_builder(
         backend, air.width, air.num_public_values, entry,
-        lambda j: E.from_base_h(public_values[j]))
+        lambda j: E.from_base_h(public_values[j]),
+        num_periodic=len(pcols), periodic_entry=periodic_at_zeta)
     air.eval(builder)
     if E.mul_h(backend.acc, sels["inv_vanishing"]) != quotient:
         raise OodEvaluationMismatch("OodEvaluationMismatch")

@@ -334,3 +334,96 @@ def test_cuda_generic_air_proofs_equal_cpu(cuda, name):
             verify(cfg, air, proof, publics)
             out.append(proof)
     assert all(p == out[0] for p in out)
+
+
+def _small_params():
+    from plonky3_tpu_torch.fri.config import FriParameters
+
+    return FriParameters(log_blowup=1, log_final_poly_len=0,
+                         max_log_arity=3, num_queries=10,
+                         commit_proof_of_work_bits=0,
+                         query_proof_of_work_bits=8)
+
+
+@pytest.mark.parametrize("name", ["blake3", "periodic", "no_next_row"])
+def test_cuda_blake3_and_periodic_proofs_equal_cpu(cuda, name):
+    """Blake3Air (8 rows, 9,168 columns) and the periodic AIRs (32 rows;
+    NoNextRowAir folds in the bit-reversed order): both provers' proofs
+    on CUDA equal both on the CPU, and the port's verifier accepts
+    them."""
+    from plonky3_tpu_torch.models.blake3_air import (
+        Blake3Air,
+        generate_blake3_trace,
+    )
+    from plonky3_tpu_torch.stark import fast_prover
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+    from plonky3_tpu_torch.stark.prover import prove
+    from plonky3_tpu_torch.stark.verifier import verify
+    from torch_periodic_airs import NoNextRowAir, PeriodicAir, periodic_trace
+
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        if name == "blake3":
+            air = Blake3Air(F)
+            inputs = np.random.default_rng(3).integers(
+                0, 1 << 32, size=(8, 24), dtype=np.uint64).astype(np.uint32)
+            trace = generate_blake3_trace(F, inputs, device=dev,
+                                          block_rows=2)
+        else:
+            air = PeriodicAir(F) if name == "periodic" else NoNextRowAir(F)
+            rows = F.to_monty_np(periodic_trace(F.P, 32))
+            trace = torch.from_numpy(rows.astype(np.int64)).to(dev)
+        cfg = keccak_stark_config(F, E, _small_params(), device=dev)
+        for fn in (prove, fast_prover._prove_device_fs):
+            proof = fn(cfg, air, trace, [])
+            verify(cfg, air, proof, [])
+            out.append(proof)
+    assert all(p == out[0] for p in out)
+
+
+@pytest.mark.parametrize("name", ["keccak", "no_next_row"])
+def test_cuda_blocked_fold_equals_cpu(cuda, name):
+    """The quotient from the committed LDE on CUDA, in one block, two and
+    eight, equals the CPU's whole-domain fold."""
+    from plonky3_tpu_torch.air.api import (
+        get_log_num_quotient_chunks,
+        get_symbolic_layout,
+    )
+    from plonky3_tpu_torch.models.keccak_air import (
+        KeccakAir,
+        generate_keccak_trace,
+    )
+    from plonky3_tpu_torch.stark import prover
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+    from torch_periodic_airs import NoNextRowAir, periodic_trace
+
+    rng = np.random.default_rng(8)
+    if name == "keccak":
+        air = KeccakAir(F)
+        inputs = rng.integers(0, 1 << 64, size=(2, 25), dtype=np.uint64)
+        trace = generate_keccak_trace(F, inputs, device="cpu")
+    else:
+        air = NoNextRowAir(F)
+        trace = torch.from_numpy(F.to_monty_np(
+            periodic_trace(F.P, 32)).astype(np.int64))
+    k, _ = get_symbolic_layout(air)
+    pows = torch.from_numpy(F.rand_np(rng, (k, E.D)).astype(np.int64))
+    got = {}
+    for dev in (torch.device("cpu"), cuda):
+        cfg = keccak_stark_config(F, E, _small_params(), device=dev)
+        n = trace.shape[0]
+        domain = cfg.pcs.natural_domain_for_degree(n)
+        qd = domain.create_disjoint_domain(
+            n << get_log_num_quotient_chunks(air))
+        data = cfg.pcs.commit([(domain, trace.to(dev))])
+        prefix = cfg.pcs.get_evaluations_on_domain(data, 0, qd, "bitrev")
+        sizes = [qd.size] if dev.type == "cpu" else [qd.size, qd.size // 2,
+                                                     qd.size // 8]
+        for rows in sizes:
+            q = prover.committed_quotient(
+                cfg, air, domain, qd, prefix,
+                torch.zeros(0, dtype=torch.int64, device=dev),
+                pows.to(dev), block_rows=rows)
+            got[dev.type, rows] = q.cpu()
+    want = got["cpu", qd.size]
+    assert all(torch.equal(q, want) for q in got.values())
