@@ -31,12 +31,16 @@ Phases, each printed as one JSON line:
            likewise: the digest chain at the padding's edge lengths and
            at the main path's longest call (10,536 words), the
            proof-of-work grind at 1 to 16 bits; and the Poseidon2 duplex
-           transcript's: the duplex chain at 0, 1 and 2 blocks, at partial
-           last blocks and at its longest call on the Poseidon2 path
-           (10,528 words, 658 blocks), the grind at 1 to 16 bits from two
-           staged states. Each grind also runs over a sweep of 16 staged
-           states at 16 bits, each witness checked and each state timed
-           by CUDA events and bounded (`sweep_ms`, `sweep_share`).
+           transcript's, in both instantiations (KoalaBear's <23, 3> and
+           BabyBear's <21, 7>: internal rounds, s-box degree): the duplex
+           chain at 0, 1 and 2 blocks, at partial last blocks and at its
+           longest call on the Poseidon2 path (10,528 words, 658 blocks;
+           BabyBear's 19,104 words, 1,194 blocks), the grind at 1 to 16
+           bits from two staged states. Each grind also runs over a sweep
+           of 16 staged states at 16 bits, each witness checked and each
+           state timed by CUDA events and bounded (`sweep_ms`,
+           `sweep_share`). K1, K2 and the sponge also at 2^18 x 2,384
+           with BabyBear's words and tables (the `*_babybear` keys).
            Kernel times are device time under
            torch.profiler (`ms`), CUDA events around the call beside it
            (`wall_ms`);
@@ -58,6 +62,10 @@ Phases, each printed as one JSON line:
            reads no next row, so its quotient folds in the committed
            bit-reversed order and its trace opens at zeta alone) at 2^8
            rows, both provers on CUDA equal to both on the CPU, verified;
+  babybear_small  Poseidon2VectorAir(BabyBear, 16, 8) (2,384 columns,
+           s-box x^7 with registers) at 2^8 rows, built by the CLI's
+           `build`, under both configs: both provers on CUDA equal both
+           on the CPU, every proof verified;
   full     the benchmark workload: 2^20 Poseidon2 permutations, a
            2^17 x 1312 trace, keccak config, FriParameters
            .new_benchmark_high_arity(); two proves, the second timed, with
@@ -112,7 +120,21 @@ Phases, each printed as one JSON line:
            of each full-size phase line). The kernels phase holds the
            NTTs at 2^18 x 9,168 against their plain versions 2,048 columns
            at a time, and the sponge's first 2^14 rows of 2^18 x 9,168
-           (the `*_blake3_air` keys of the kernels line).
+           (the `*_blake3_air` keys of the kernels line);
+  babybear the CLI's poseidon-2-permutations objective over BabyBear at
+           full size (`plonky3_tpu_torch.cli.build`: 2^20 permutations, a
+           2^17 x 2,384 trace, 2,256 constraints, keccak config,
+           new_benchmark_high_arity()), the same checks as keccak_air, the
+           probes a changed opened trace value, commit-phase sibling
+           digest and s-box register value;
+  cli      one run of `python -m plonky3_tpu_torch.cli prove --field
+           baby-bear --objective poseidon-2-permutations
+           --log-trace-length 17 --merkle-hash keccak-f --prover fast` in
+           its own process: exit code 0, the objective line, the spans,
+           the babybear phase's proof size and the soundness line;
+  babybear_poseidon2  the same workload under the Poseidon2 config: the
+           duplex kernels' <21, 7> (and no keccak kernel, no <23, 3>),
+           the same checks and probes, the chain call by call.
 Every profile checks that it recorded each of the port's kernels as many
 times as the prove launched it, and profiles again where it did not.
 Before the last line: one JSON object listing every kernel. The last line
@@ -344,66 +366,88 @@ def ladder_bound(card, m, nodes):
 
 
 # 32-bit instructions of one width-24 Poseidon2 permutation
-# (csrc/poseidon2.cu), by pipe. A modular add is an add and a reduction
-# min(s, s - p): 2 ALU. A Montgomery product is the 64-bit product, the
-# quotient word and its product with p (3 multiplies) and the corrected
-# difference of the high words (1 ALU). The external layer: M4 on each of
-# the 6 blocks of four (11 adds), the 4 position sums over the blocks (5
-# adds each), one add a lane: 110 adds. An external round: a constant add
-# and the cube (2 products) on each of the 24 lanes, then the layer. An
-# internal round: the constant add and the cube on lane 0, the lane sum
-# (23 adds), a product and an add on each lane. The layer runs once before
-# the rounds; 8 external rounds, 23 internal.
-P2_ADDS = 110 + 8 * (24 + 110) + 23 * (1 + 23 + 24)
-P2_PRODUCTS = 8 * 24 * 2 + 23 * (2 + 24)
-POSEIDON2_24_ALU = 2 * P2_ADDS + P2_PRODUCTS
-POSEIDON2_24_MUL = 3 * P2_PRODUCTS
+# (csrc/poseidon2.cu), by pipe, for s-box degree d and R internal rounds:
+# KoalaBear's (3, 23) and BabyBear's (7, 21), the kernels' instantiations
+# <23, 3> and <21, 7>. A modular add is an add and a reduction min(s, s -
+# p): 2 ALU. A Montgomery product is the 64-bit product, the quotient word
+# and its product with p (3 multiplies) and the corrected difference of
+# the high words (1 ALU). The s-box: x^3 two products (x2·x), x^7 four
+# (x2, x3 = x2·x, x4 = x2·x2, x4·x3). The external layer: M4 on each of the
+# 6 blocks of four (11 adds), the 4 position sums over the blocks (5 adds
+# each), one add a lane: 110 adds. An external round: a constant add and
+# the s-box on each of the 24 lanes, then the layer. An internal round:
+# the constant add and the s-box on lane 0, the lane sum (23 adds), a
+# product and an add on each lane. The layer runs once before the rounds;
+# 8 external rounds, R internal.
+#
 # The depth of the function's shortest dependency graph in those forms
-# (not the kernel's graph): an add or a subtraction 2, a product 4. A
-# round constant joins the linear map before its s-box as one more input,
-# off the path. The external layer: an output word is a linear form of
-# the 24 words whose coefficients sum to 49, so a tree of adds is at
-# least 6 deep (a product by a constant, as deep as two adds, shortens
-# no such tree here), and 2·o_i plus the other five blocks' o (o, M4's
-# output, 3 adds) reaches 6: 12. An external round: the cube (two
-# products, 8) and the layer: 20. An internal round on lane 0's path: the
-# cube (8), then lane 0's next word Q_0 - s (V_0 = -2, so S + V_0·s =
-# Q_0 - s, Q_0 the sum of the other 23 words, which the recurrence of
-# csrc/poseidon2.cu keeps ready off the path): 10. The layer once, 8
-# external rounds, 23 internal: 402.
-POSEIDON2_24_DEPTH = 12 + 8 * (8 + 12) + 23 * (8 + 2)
-P2_RC_WORDS = 4 * 24 + 23 + 4 * 24  # the round constants
-# the grind's table: the round constants, the diagonal and its Shoup quotients
-P2_TABLE_WORDS = P2_RC_WORDS + 2 * 24
-P2_CHAIN_TABLE_WORDS = P2_RC_WORDS + 24 + 23 * 24 + 24  # the chain's
+# (not the kernel's graph): an add or a subtraction 2, a product 4, so the
+# s-box 8 (x^3, two products deep) or 12 (x^7, three). A round constant
+# joins the linear map before its s-box as one more input, off the path.
+# The external layer: an output word is a linear form of the 24 words
+# whose coefficients sum to 49, so a tree of adds is at least 6 deep (a
+# product by a constant, as deep as two adds, shortens no such tree here),
+# and 2·o_i plus the other five blocks' o (o, M4's output, 3 adds) reaches
+# 6: 12. An external round: the s-box and the layer. An internal round on
+# lane 0's path: the s-box, then lane 0's next word Q_0 - s (V_0 = -2, so
+# S + V_0·s = Q_0 - s, Q_0 the sum of the other 23 words, which the
+# recurrence of csrc/poseidon2.cu keeps ready off the path): 2. The layer
+# once, 8 external rounds, R internal: 402 for (3, 23), 498 for (7, 21).
+class P2Counts(NamedTuple):
+    adds: int
+    products: int
+    alu: int
+    mul: int
+    depth: int
+    table_words: int  # the grind's: the round constants, diag, Shoup
+    chain_table_words: int  # the chain's: the round constants, diag,
+    # d_i^k and c_k
 
 
-def p2_chain_depth(n):
+def p2_counts(d, rounds):
+    sbox_products, sbox_depth = {3: (2, 8), 7: (4, 12)}[d]
+    adds = 110 + 8 * (24 + 110) + rounds * (1 + 23 + 24)
+    products = 8 * 24 * sbox_products + rounds * (sbox_products + 24)
+    rc_words = 4 * 24 + rounds + 4 * 24
+    return P2Counts(adds, products, 2 * adds + products, 3 * products,
+                    12 + 8 * (sbox_depth + 12) + rounds * (sbox_depth + 2),
+                    rc_words + 2 * 24, rc_words + 24 + rounds * 24 + 24)
+
+
+KOALABEAR_P2 = (3, 23)
+BABYBEAR_P2 = (7, 21)
+# the records' names of each instantiation (poseidon2_cuda.INSTANCES)
+P2_SUFFIX = {KOALABEAR_P2: "", BABYBEAR_P2: "_babybear"}
+P2 = {k: p2_counts(*k) for k in (KOALABEAR_P2, BABYBEAR_P2)}
+
+
+def p2_chain_depth(n, key=KOALABEAR_P2):
     """Dependent instructions of a duplex absorb of n words: nb = max(1,
     ceil(n/16)) permutations one after another. Between two of them the
     last layer, the absorb and the next first layer are one affine map of
-    the 24 cubes, each output reading all 24 with coefficients of at least
-    14: products by constants and a tree of 25 leaves, 14 deep, where the
-    two layers took 24. With n > 0 the first layer reads only words 16..23
-    of the given state (coefficient sums of at most 21): 10, not 12."""
+    the 24 s-box outputs, each output reading all 24 with coefficients of
+    at least 14: products by constants and a tree of 25 leaves, 14 deep,
+    where the two layers took 24. With n > 0 the first layer reads only
+    words 16..23 of the given state (coefficient sums of at most 21): 10,
+    not 12."""
     nb = max(1, -(-n // 16))
-    return nb * POSEIDON2_24_DEPTH - 10 * (nb - 1) - (2 if n > 0 else 0)
+    return nb * P2[key].depth - 10 * (nb - 1) - (2 if n > 0 else 0)
 
 
-def p2_chain_bound(card, n):
+def p2_chain_bound(card, n, key=KOALABEAR_P2):
     """Duplex absorb of n words, at least p2_chain_depth(n) dependent
     instructions; the state, the words and the table read, the state
     written."""
-    nb = max(1, -(-n // 16))
-    return bound_ms(card, 4 * (24 + n + P2_CHAIN_TABLE_WORDS + 24),
-                    nb * POSEIDON2_24_ALU, nb * POSEIDON2_24_MUL,
-                    p2_chain_depth(n))
+    nb, c = max(1, -(-n // 16)), P2[key]
+    return bound_ms(card, 4 * (24 + n + c.chain_table_words + 24),
+                    nb * c.alu, nb * c.mul, p2_chain_depth(n, key))
 
 
-def p2_grind_bound(card, w):
+def p2_grind_bound(card, w, key=KOALABEAR_P2):
     """The least work that finds witness w: w + 1 permutations."""
-    return bound_ms(card, 4 * (24 + P2_TABLE_WORDS + 1),
-                    (w + 1) * POSEIDON2_24_ALU, (w + 1) * POSEIDON2_24_MUL)
+    c = P2[key]
+    return bound_ms(card, 4 * (24 + c.table_words + 1),
+                    (w + 1) * c.alu, (w + 1) * c.mul)
 
 
 def chain_bound(card, n, k):
@@ -556,10 +600,14 @@ def launch_bounds(card, calls, witnesses=()):
             name, b = "keccak256_chain", chain_bound(card, a[2], a[3])
         elif fn == "keccak_grind":
             name, b = "keccak_grind", grind_bound(card, a[1], next(found))
-        elif fn == "poseidon2_duplex_chain":
-            name, b = "poseidon2_duplex_chain", p2_chain_bound(card, a[2])
-        elif fn == "poseidon2_grind":
-            name, b = "poseidon2_grind", p2_grind_bound(card, next(found))
+        elif fn == "poseidon2_duplex_chain":  # a[8:10]: rounds, degree
+            key = (a[9], a[8])
+            name = fn + P2_SUFFIX[key]
+            b = p2_chain_bound(card, a[2], key)
+        elif fn == "poseidon2_grind":  # a[7:9]: rounds, degree
+            key = (a[8], a[7])
+            name = fn + P2_SUFFIX[key]
+            b = p2_grind_bound(card, next(found), key)
         else:
             m, levels = a[2], a[3]
             name, b = "keccak_ladder", ladder_bound(card, m,
@@ -695,7 +743,9 @@ def phase_card(torch, kernels):
               **sass_counts(kernels.so_path("keccak"),
                             {"keccak_grind": "keccak_grind_kernel"}),
               **sass_counts(kernels.so_path("poseidon2"),
-                            {"poseidon2_grind": "duplex_grind_kernel"})}})
+                            {"poseidon2_grind": "duplex_grind_kernelILi23",
+                             "poseidon2_grind_babybear":
+                                 "duplex_grind_kernelILi21"})}})
     return Card(peak, lat / (clock_mhz * 1e6))
 
 
@@ -730,11 +780,15 @@ def compare(what, got, want):
 
 
 # KeccakAir's and Blake3Air's widths (models/keccak_air.py
-# NUM_KECCAK_COLS, models/blake3_air.py NUM_BLAKE3_COLS): the NTTs and the
-# leaf sponge run at them on the keccak-AIR and Blake3-AIR paths
+# NUM_KECCAK_COLS, models/blake3_air.py NUM_BLAKE3_COLS) and that of
+# Poseidon2VectorAir(BabyBear, 16, 8) (8 × 298 columns, s-box registers):
+# the NTTs and the leaf sponge run at them on the keccak-AIR, Blake3-AIR
+# and BabyBear paths, the last with BabyBear's words and tables
 KECCAK_AIR_WIDTH = 2633
 BLAKE3_AIR_WIDTH = 9168
-AIR_WIDTHS = {KECCAK_AIR_WIDTH: "keccak_air", BLAKE3_AIR_WIDTH: "blake3_air"}
+BABYBEAR_WIDTH = 2384
+AIR_WIDTHS = {KECCAK_AIR_WIDTH: "keccak_air", BLAKE3_AIR_WIDTH: "blake3_air",
+              BABYBEAR_WIDTH: "babybear"}
 # columns of one plain NTT at the Blake3 width (the whole 2^18 x 9,168
 # int64 transform and its temporaries do not fit the card at once)
 PLAIN_NTT_COLUMNS = 2048
@@ -772,26 +826,34 @@ def phase_kernels(torch, np, card):
     """Every kernel against its plain version; returns the per-kernel
     records of the main-path shapes."""
     from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.fields import BabyBear
     from plonky3_tpu_torch.fields import KoalaBear as F
     from plonky3_tpu_torch.hashes import keccak_cuda as kc
     from plonky3_tpu_torch.hashes.keccak_sponge import KeccakCompressor
     from plonky3_tpu_torch.merkle.mmcs import levels_by_compress
     from plonky3_tpu_torch.ops import ntt_cuda as nc
 
+    def field_at(w):
+        """BabyBear at the BabyBear path's width, else KoalaBear."""
+        return BabyBear if w == BABYBEAR_WIDTH else F
+
     rng = np.random.default_rng(5)
     records = {}
 
-    # NTT: (log_n, w, inverse, zero_top); the first two and the seventh
-    # and eighth are the main path's shapes (trace iDFT and LDE,
-    # quotient-chunk iDFT and LDE), the third to sixth the keccak-AIR and
-    # Blake3-AIR paths' trace iDFT and LDE (at the Blake3 width the plain
-    # version runs PLAIN_NTT_COLUMNS columns at a time); the last three
-    # go through more than one level of the plan.
+    # NTT: (log_n, w, inverse, zero_top); the first two and the ninth
+    # and tenth are the main path's shapes (trace iDFT and LDE,
+    # quotient-chunk iDFT and LDE), the third to eighth the keccak-AIR,
+    # Blake3-AIR and BabyBear paths' trace iDFT and LDE (at the Blake3
+    # width the plain version runs PLAIN_NTT_COLUMNS columns at a time;
+    # at the BabyBear width over BabyBear's tables); the last three go
+    # through more than one level of the plan.
     ntt_cases = [(17, 1312, True, False), (18, 1312, False, True),
                  (17, KECCAK_AIR_WIDTH, True, False),
                  (18, KECCAK_AIR_WIDTH, False, True),
                  (17, BLAKE3_AIR_WIDTH, True, False),
                  (18, BLAKE3_AIR_WIDTH, False, True),
+                 (17, BABYBEAR_WIDTH, True, False),
+                 (18, BABYBEAR_WIDTH, False, True),
                  (17, 4, True, False), (18, 4, False, True),
                  (1, 5, False, False), (1, 5, True, True),
                  (6, 5, False, False), (6, 5, True, False),
@@ -800,21 +862,26 @@ def phase_kernels(torch, np, card):
                  (13, 200, False, False), (21, 4, False, True),
                  (21, 4, True, False), (22, 3, False, False)]
     for log_n, w, inverse, zero_top in ntt_cases:
+        Fw = field_at(w)
         rows = (1 << log_n) >> 1 if zero_top else 1 << log_n
-        x = (_rand_words_device(torch, log_n, (rows, w), F.P)
+        x = (_rand_words_device(torch, log_n, (rows, w), Fw.P)
              if w == BLAKE3_AIR_WIDTH else
-             _rand_words(torch, rng, (rows, w), F.P))
+             _rand_words(torch, rng, (rows, w), Fw.P))
         before = dict(kernels.LAUNCHES)
-        got = nc.dif_fused(F, x, log_n, inverse, zero_top)
+        got = nc.dif_fused(Fw, x, log_n, inverse, zero_top)
         ran = {k: kernels.LAUNCHES[k] - before[k]
                for k in ("ntt_k1", "ntt_k2")}
 
         def plain_ntt(part):
-            return nc.dif_fused_plain(F, part, log_n, inverse, zero_top)
+            return nc.dif_fused_plain(Fw, part, log_n, inverse, zero_top)
 
         if w == BLAKE3_AIR_WIDTH:
             err, plain = plain_by_columns(torch, plain_ntt, x, got,
                                           f"ntt {log_n} {w}")
+        elif w in AIR_WIDTHS:  # the plain run compared is the one timed
+            want, plain = once_ms(torch, lambda: plain_ntt(x))
+            err = compare(f"ntt {log_n} {w}", got, want)
+            del want
         else:
             err = compare(f"ntt {log_n} {w}", got, plain_ntt(x))
         steps = nc.plan(log_n, zero_top)
@@ -823,7 +890,7 @@ def phase_kernels(torch, np, card):
         if ran != planned:
             raise AssertionError(f"ntt {log_n} {w}: launched {ran}, "
                                  f"planned {planned}")
-        rec = {"log_n": log_n, "w": w, "inverse": inverse,
+        rec = {"log_n": log_n, "w": w, "field": Fw.name, "inverse": inverse,
                "zero_top": zero_top, "k1_launches": ran["ntt_k1"],
                "k2_launches": ran["ntt_k2"], "max_abs_err": err}
         if w == BLAKE3_AIR_WIDTH:
@@ -835,13 +902,13 @@ def phase_kernels(torch, np, card):
             y1 = torch.empty((n, w), dtype=torch.int32, device=x.device)
             out = torch.empty_like(y1)
             # device time (ms); CUDA events around the call beside it
-            run1 = lambda: nc.launch(F, s1, x, y1, inverse)  # noqa: E731
-            run2 = lambda: nc.launch(F, s2, y1, out, inverse)  # noqa: E731
+            run1 = lambda: nc.launch(Fw, s1, x, y1, inverse)  # noqa: E731
+            run2 = lambda: nc.launch(Fw, s2, y1, out, inverse)  # noqa: E731
             k1, k1_src = profiled_ms(torch, run1, 10, "ntt_kernel<")
             k2, k2_src = profiled_ms(torch, run2, 10, "ntt_kernel<")
             k1_wall, k2_wall = cuda_ms(torch, run1, 10), cuda_ms(torch, run2,
                                                                  10)
-            if w != BLAKE3_AIR_WIDTH:
+            if w not in AIR_WIDTHS:
                 plain = cuda_ms(torch, lambda: plain_ntt(x), 2)
             b1 = ntt_bound(card, "k1", log_a, log_b, w, zero_top)
             b2 = ntt_bound(card, "k2", log_a, log_b, w, zero_top)
@@ -876,15 +943,17 @@ def phase_kernels(torch, np, card):
 
     # the leaf sponge; at the Blake3 width the kernel runs over all 2^18
     # rows and its first PLAIN_SPONGE_ROWS rows are held against the plain
-    # version (a row's digest reads that row alone)
+    # version (a row's digest reads that row alone); the plain run
+    # compared is the one timed
     src = "plonky3_tpu_torch/csrc/keccak.cu"
     for h, w in [(1 << 18, 1312), (1 << 18, KECCAK_AIR_WIDTH),
-                 (1 << 18, BLAKE3_AIR_WIDTH),
+                 (1 << 18, BLAKE3_AIR_WIDTH), (1 << 18, BABYBEAR_WIDTH),
                  (1 << 18, 8), (1 << 18, 32), (1, 3),
                  (5, 35), (300, 34), (7, 1)]:
-        flat = (_rand_words_device(torch, w, (h, w), F.P)
+        P = field_at(w).P
+        flat = (_rand_words_device(torch, w, (h, w), P)
                 if w == BLAKE3_AIR_WIDTH else
-                _rand_words(torch, rng, (h, w), F.P))
+                _rand_words(torch, rng, (h, w), P))
         got = kc.keccak_sponge_rows(flat)
         rec = {"h": h, "w": w}
         if w == BLAKE3_AIR_WIDTH:
@@ -894,16 +963,14 @@ def phase_kernels(torch, np, card):
             err = compare(f"sponge {h} {w}", got[:PLAIN_SPONGE_ROWS], want)
             rec.update(plain_rows=PLAIN_SPONGE_ROWS)
         else:
-            want = kc.keccak_sponge_rows_plain(flat)
+            want, plain = once_ms(torch,
+                                  lambda: kc.keccak_sponge_rows_plain(flat))
             err = compare(f"sponge {h} {w}", got, want)
         rec["max_abs_err"] = err
         if h >= 1 << 18:
             run = lambda: kc.keccak_sponge_rows(flat)  # noqa: E731
             ms, ms_src = profiled_ms(torch, run, 10, "sponge_rows_kernel")
             wall = cuda_ms(torch, run, 10)
-            if w != BLAKE3_AIR_WIDTH:
-                plain = cuda_ms(
-                    torch, lambda: kc.keccak_sponge_rows_plain(flat), 1)
             b = sponge_bound(card, h, w)
             rec.update(ms=ms, ms_source=ms_src, wall_ms=wall, plain_ms=plain,
                        bound_ms=b[0], bound_by=b[1],
@@ -958,7 +1025,8 @@ def phase_kernels(torch, np, card):
         before = kernels.LAUNCHES["keccak_ladder"]
         got = kc.keccak_merkle_ladder(d)
         ran = kernels.LAUNCHES["keccak_ladder"] - before
-        want = kc.keccak_merkle_ladder_plain(d)
+        want, plain = once_ms(torch,
+                              lambda: kc.keccak_merkle_ladder_plain(d))
         err = compare(f"ladder {n}", got, want)
         if ran != len(kc.ladder_plan(n)):
             raise AssertionError(f"ladder {n}: launched {ran}, planned "
@@ -976,8 +1044,6 @@ def phase_kernels(torch, np, card):
             old_wall = cuda_ms(torch, old, 10)
             old_dev = profiled_ms(torch, old, 5)[0]
             route = cuda_ms(torch, lambda: comp.ladder_device(d), 10)
-            plain = cuda_ms(torch, lambda: kc.keccak_merkle_ladder_plain(d),
-                            1)
             b = ladder_bound(card, n, n - 1)
             rec.update(ms=ms, ms_source=ms_src, wall_ms=wall, plain_ms=plain,
                        per_level_route_device_ms=old_dev,
@@ -1081,8 +1147,10 @@ def phase_kernels(torch, np, card):
 
 
 # the longest duplex absorb of the Poseidon2 path: the opened values before
-# alpha2, 2 × 1312 trace values and 2 quotient chunks of 4, 4 words each
+# alpha2, 2 × 1312 trace values and 2 quotient chunks of 4, 4 words each;
+# over BabyBear, 2 × 2,384 trace values
 P2_ALPHA2_WORDS = (2 * 1312 + 2 * 4) * 4
+P2_ALPHA2_WORDS_BABYBEAR = (2 * BABYBEAR_WIDTH + 2 * 4) * 4
 
 
 def once_ms(torch, fn):
@@ -1099,85 +1167,97 @@ def once_ms(torch, fn):
 
 def phase_kernels_poseidon2(torch, np, card, rng, records):
     """The Poseidon2 duplex transcript's kernels against their plain
-    versions: the chain at 0 blocks (a bare permutation), 1 and 2 blocks,
-    partial last blocks of 1 and 15 lanes, and the Poseidon2 path's
-    longest absorb; the grind at 1 to 16 bits from two staged states and
-    over the sweep's."""
-    from plonky3_tpu_torch.fields import KoalaBear as F
+    versions, both instantiations: KoalaBear's <23, 3> and BabyBear's
+    <21, 7> (records `*_babybear`). The chain at 0 blocks (a bare
+    permutation), 1 and 2 blocks, partial last blocks of 1 and 15 lanes,
+    and the Poseidon2 path's longest absorb; the grind at 1 to 16 bits
+    from two staged states and over the sweep's."""
+    from plonky3_tpu_torch.fields import BabyBear, KoalaBear
     from plonky3_tpu_torch.hashes import poseidon2_cuda as pc
     from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
 
-    perm = default_poseidon2(F, 24)
     src = "plonky3_tpu_torch/csrc/poseidon2.cu"
     duplex = "plonky3_tpu/challenger/device_duplex.py"
-    for n in (0, 16, 32, 1, 15, 17, 31, P2_ALPHA2_WORDS):
-        state = _rand_words(torch, rng, (24,), F.P)
-        words = _rand_words(torch, rng, (n,), F.P)
-        got = pc.poseidon2_duplex_chain(perm, state, words)
-        want, plain = once_ms(torch, lambda: pc.poseidon2_duplex_chain_plain(
-            perm, state, words))
-        err = compare(f"poseidon2 chain {n}", got, want)
-        nb, k = pc._blocks(n)
-        rec = {"n": n, "blocks": nb, "last_block_lanes": k,
-               "max_abs_err": err, "plain_ms": plain}
-        if n == P2_ALPHA2_WORDS:
-            chain = lambda: pc.poseidon2_duplex_chain(  # noqa: E731
-                perm, state, words)
-            ms, ms_src = profiled_ms(torch, chain, 10, "duplex_chain_kernel")
-            b = p2_chain_bound(card, n)
-            rec.update(ms=ms, ms_source=ms_src,
-                       wall_ms=cuda_ms(torch, chain, 10),
-                       us_per_permutation=ms * 1e3 / nb, bound_ms=b[0],
-                       bound_by=b[1], share=share("poseidon2 chain", b[0],
-                                                  ms))
-            records["poseidon2_duplex_chain"] = dict(
-                name="poseidon2_duplex_chain", route="cuda", source=src,
-                replaces=f"{duplex}:58", max_abs_err=err, ms=ms,
-                ms_source=ms_src, wall_ms=rec["wall_ms"], plain_ms=plain,
-                bound_ms=b[0], bound_by=b[1],
-                library_ms=None, share=rec["share"],
-                us_per_permutation=rec["us_per_permutation"],
-                shape=[n, nb])
-        emit({"phase": "kernels", "kernel": "poseidon2_duplex_chain", **rec})
-
-    for lane in (0, GRIND_LANE):
-        base = _rand_words(torch, rng, (24,), F.P)
-        for bits in (1, 4, 8, 12, 16):
-            got = pc.poseidon2_grind(perm, base, lane, bits)
-            want, plain = once_ms(torch, lambda: pc.poseidon2_grind_plain(
-                perm, base, lane, bits))
-            err = compare(f"poseidon2 grind {lane} {bits}", got, want)
-            w = int(got[0])
-            rec = {"lane": lane, "pow_bits": bits, "witness": w,
-                   "max_abs_err": err, "plain_ms": plain}
-            if (lane, bits) == (GRIND_LANE, 16):
-                grind = lambda: pc.poseidon2_grind(  # noqa: E731
-                    perm, base, lane, 16)
-                ms, ms_src = profiled_ms(torch, grind, 10,
-                                         "duplex_grind_kernel")
-                b = p2_grind_bound(card, w)
+    for F, longest in ((KoalaBear, P2_ALPHA2_WORDS),
+                       (BabyBear, P2_ALPHA2_WORDS_BABYBEAR)):
+        perm = default_poseidon2(F, 24)
+        key = pc.instance(perm)
+        chain_name = pc.launch_name("poseidon2_duplex_chain", perm)
+        grind_name = pc.launch_name("poseidon2_grind", perm)
+        tag = f"<{key[1]}, {key[0]}>"
+        for n in (0, 16, 32, 1, 15, 17, 31, longest):
+            state = _rand_words(torch, rng, (24,), F.P)
+            words = _rand_words(torch, rng, (n,), F.P)
+            got = pc.poseidon2_duplex_chain(perm, state, words)
+            want, plain = once_ms(
+                torch, lambda: pc.poseidon2_duplex_chain_plain(perm, state,
+                                                               words))
+            err = compare(f"{chain_name} {n}", got, want)
+            nb, k = pc._blocks(n)
+            rec = {"field": F.name, "instance": tag, "n": n, "blocks": nb,
+                   "last_block_lanes": k, "max_abs_err": err,
+                   "plain_ms": plain}
+            if n == longest:
+                chain = lambda: pc.poseidon2_duplex_chain(  # noqa: E731
+                    perm, state, words)
+                ms, ms_src = profiled_ms(
+                    torch, chain, 10, "duplex_chain_kernel" + tag[:3])
+                b = p2_chain_bound(card, n, key)
                 rec.update(ms=ms, ms_source=ms_src,
-                           wall_ms=cuda_ms(torch, grind, 10),
-                           bound_ms=b[0], bound_by=b[1],
-                           share=share("poseidon2 grind", b[0], ms))
-                records["poseidon2_grind"] = dict(
-                    name="poseidon2_grind", route="cuda", source=src,
-                    replaces=f"{duplex}:146", max_abs_err=err, ms=ms,
-                    ms_source=ms_src, wall_ms=rec["wall_ms"], plain_ms=plain,
-                    bound_ms=b[0], bound_by=b[1],
-                    library_ms=None, share=rec["share"], shape=[lane, 16],
-                    witness=w)
-            emit({"phase": "kernels", "kernel": "poseidon2_grind", **rec})
-    bases = [torch.from_numpy(b).to(torch.int32).cuda()
-             for b in sweep_states(np, F.P)[1]]
-    sweep = grind_sweep(
-        torch, "poseidon2 grind",
-        lambda b: pc.poseidon2_grind(perm, b, GRIND_LANE, SWEEP_BITS),
-        lambda b: pc.poseidon2_grind_plain(perm, b, GRIND_LANE, SWEEP_BITS),
-        lambda w: p2_grind_bound(card, w), bases)
-    records["poseidon2_grind"].update(sweep)
-    emit({"phase": "kernels", "kernel": "poseidon2_grind",
-          "lane": GRIND_LANE, "pow_bits": SWEEP_BITS, **sweep})
+                           wall_ms=cuda_ms(torch, chain, 10),
+                           us_per_permutation=ms * 1e3 / nb, bound_ms=b[0],
+                           bound_by=b[1], share=share(chain_name, b[0], ms))
+                records[chain_name] = dict(
+                    name=chain_name, route="cuda", source=src,
+                    replaces=f"{duplex}:58", max_abs_err=err, ms=ms,
+                    ms_source=ms_src, wall_ms=rec["wall_ms"],
+                    plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                    library_ms=None, share=rec["share"],
+                    us_per_permutation=rec["us_per_permutation"],
+                    instance=tag, shape=[n, nb])
+            emit({"phase": "kernels", "kernel": chain_name, **rec})
+
+        for lane in (0, GRIND_LANE):
+            base = _rand_words(torch, rng, (24,), F.P)
+            for bits in (1, 4, 8, 12, 16):
+                got = pc.poseidon2_grind(perm, base, lane, bits)
+                want, plain = once_ms(
+                    torch, lambda: pc.poseidon2_grind_plain(perm, base,
+                                                            lane, bits))
+                err = compare(f"{grind_name} {lane} {bits}", got, want)
+                w = int(got[0])
+                rec = {"field": F.name, "instance": tag, "lane": lane,
+                       "pow_bits": bits, "witness": w, "max_abs_err": err,
+                       "plain_ms": plain}
+                if (lane, bits) == (GRIND_LANE, 16):
+                    grind = lambda: pc.poseidon2_grind(  # noqa: E731
+                        perm, base, lane, 16)
+                    ms, ms_src = profiled_ms(
+                        torch, grind, 10, "duplex_grind_kernel" + tag[:3])
+                    b = p2_grind_bound(card, w, key)
+                    rec.update(ms=ms, ms_source=ms_src,
+                               wall_ms=cuda_ms(torch, grind, 10),
+                               bound_ms=b[0], bound_by=b[1],
+                               share=share(grind_name, b[0], ms))
+                    records[grind_name] = dict(
+                        name=grind_name, route="cuda", source=src,
+                        replaces=f"{duplex}:146", max_abs_err=err, ms=ms,
+                        ms_source=ms_src, wall_ms=rec["wall_ms"],
+                        plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                        library_ms=None, share=rec["share"],
+                        instance=tag, shape=[lane, 16], witness=w)
+                emit({"phase": "kernels", "kernel": grind_name, **rec})
+        bases = [torch.from_numpy(b).to(torch.int32).cuda()
+                 for b in sweep_states(np, F.P)[1]]
+        sweep = grind_sweep(
+            torch, grind_name,
+            lambda b: pc.poseidon2_grind(perm, b, GRIND_LANE, SWEEP_BITS),
+            lambda b: pc.poseidon2_grind_plain(perm, b, GRIND_LANE,
+                                               SWEEP_BITS),
+            lambda w: p2_grind_bound(card, w, key), bases)
+        records[grind_name].update(sweep)
+        emit({"phase": "kernels", "kernel": grind_name, "lane": GRIND_LANE,
+              "pow_bits": SWEEP_BITS, **sweep})
 
 
 def phase_mixed(torch, np, kernels):
@@ -1373,11 +1453,13 @@ SMALL_PARAMS = dict(log_blowup=1, log_final_poly_len=0, max_log_arity=3,
                     query_proof_of_work_bits=8)
 
 
-def _cuda_equals_cpu(torch, name, make, publics, params, secs):
+def _cuda_equals_cpu(torch, name, make, publics, params, secs,
+                     make_config=None):
     """Both provers on CUDA and on the CPU (plain versions) under the
-    keccak config, each proof verified; all four must be equal. make(dev)
-    gives (air, trace). Returns (air, config, the CUDA fast proof, the
-    blocks the CUDA fast prove's quotient folded)."""
+    KoalaBear keccak config, or `make_config(params, device)`'s, each proof
+    verified; all four must be equal. make(dev) gives (air, trace).
+    Returns (air, config, the CUDA fast proof, the blocks the CUDA fast
+    prove's quotient folded)."""
     from plonky3_tpu_torch.fields import KoalaBearExt4 as E
     from plonky3_tpu_torch.fields import KoalaBear as F
     from plonky3_tpu_torch.stark import prover as stark_prover
@@ -1385,10 +1467,14 @@ def _cuda_equals_cpu(torch, name, make, publics, params, secs):
     from plonky3_tpu_torch.stark.fast_prover import _prove_device_fs
     from plonky3_tpu_torch.stark.verifier import verify
 
+    if make_config is None:
+        def make_config(params, device):
+            return keccak_stark_config(F, E, params, device=device)
+
     proofs, blocks = {}, None
     for dev in ("cuda", "cpu"):
         air, trace = make(dev)
-        config = keccak_stark_config(F, E, params, device=dev)
+        config = make_config(params, dev)
         for fn_name, fn in (("prove", stark_prover.prove),
                             ("fast", _prove_device_fs)):
             before = stark_prover.FOLD_BLOCKS["count"]
@@ -1744,7 +1830,7 @@ def device_fs_phase(torch, kernels, card, phase, workload, path, stray,
           "warm_fast_s_turns": turns["fast"],
           "warm_prove_s_turns": turns["prove"], "fast_median_s": fast_s,
           "prove_median_s": statistics.median(turns["prove"]),
-          "equals_prove": True})
+          "proof_bytes": proof.size_in_bytes(), "equals_prove": True})
     phase_verify(config, air, proof, log_n, phase=f"{phase}_verify",
                  probes=probes)
     spans = {}
@@ -1765,14 +1851,15 @@ def device_fs_phase(torch, kernels, card, phase, workload, path, stray,
     device_ms = profile_prove(torch, kernels, fp._prove_device_fs, config,
                               air, trace, fast_s, phase=f"{phase}_profile")
     return dict(launches=launches, per_proof=per_proof, device_ms=device_ms,
-                calls=calls)
+                calls=calls, proof_bytes=proof.size_in_bytes())
 
 
 def phase_poseidon2(torch, np, kernels, card):
     """The benchmark workload under poseidon2_stark_config through
     `device_fs_phase` (probes: a changed opened trace value, trace root
-    and commit-phase sibling digest; two warm turns of each prover, the
-    keccak phases take three, for the script's time), then the duplex
+    and commit-phase sibling digest; one warm turn of each prover beside
+    the warm fast prove, the keccak phases take two, for the script's
+    time), then the duplex
     chain call by call and the plain-torch hashing of the trace tree.
     Returns its launches, per-proof bounds and profiled device time by
     kernel."""
@@ -1785,7 +1872,7 @@ def phase_poseidon2(torch, np, kernels, card):
     config, air, trace = _workload(np, log_n, params, "cuda", "poseidon2")
     out = device_fs_phase(
         torch, kernels, card, "poseidon2", (config, air, trace),
-        POSEIDON2_PATH, KECCAK_KERNELS, ("prove", "fast", "fast", "prove"),
+        POSEIDON2_PATH, KECCAK_KERNELS, ("fast", "prove"),
         ("trace_local", "trace_root", "commit_phase_sibling_digest"),
         {"perms": 8 << log_n})
     calls = out.pop("calls")
@@ -1895,6 +1982,139 @@ def phase_blake3_air(torch, np, kernels, card):
                     if fn == "keccak256_chain"]})
     return out
 
+# the duplex kernels' names by instantiation, and those of the BabyBear
+# Poseidon2 path
+P2_KERNELS = ("poseidon2_duplex_chain", "poseidon2_grind",
+              "poseidon2_duplex_chain_babybear", "poseidon2_grind_babybear")
+BABYBEAR_POSEIDON2_PATH = ("ntt_k1", "ntt_k2",
+                           "poseidon2_duplex_chain_babybear",
+                           "poseidon2_grind_babybear")
+# the CLI's run of the BabyBear path (`phase_cli`)
+CLI_ARGS = ("prove", "--field", "baby-bear", "--objective",
+            "poseidon-2-permutations", "--log-trace-length", "17",
+            "--merkle-hash", "keccak-f", "--prover", "fast")
+
+
+def phase_babybear_small(torch, np):
+    """Poseidon2VectorAir(BabyBear, 16, 8) (2,384 columns, s-box x^7 with
+    registers) at 2^8 rows, built by the CLI's `build`, under both
+    configs: both provers on the card equal both on the CPU, every proof
+    verified."""
+    from plonky3_tpu_torch import cli
+    from plonky3_tpu_torch.fields import BabyBear as F
+    from plonky3_tpu_torch.fields import BabyBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark import config as stark_config
+
+    log_n, secs, out = 8, {}, {}
+    for merkle, make in (("keccak-f", stark_config.keccak_stark_config),
+                         ("poseidon2", stark_config.poseidon2_stark_config)):
+        def job(dev):
+            j = cli.build("baby-bear", "poseidon-2-permutations", log_n, 3,
+                          "testing", merkle, dev)
+            return j.air, j.trace
+
+        air, _, proof, _ = _cuda_equals_cpu(
+            torch, f"babybear_{merkle}", job, [],
+            FriParameters(**SMALL_PARAMS), secs,
+            lambda params, dev: make(F, E, params, device=dev))
+        out[merkle] = {"width": air.width, "proof_bytes":
+                       proof.size_in_bytes()}
+    emit({"phase": "babybear_small", "rows": 1 << log_n,
+          "cuda_equals_cpu": True, "fast_equals_prove": True, "verified": 8,
+          **out, **secs})
+
+
+def phase_babybear(torch, np, kernels, card, merkle):
+    """The CLI's poseidon-2-permutations objective over BabyBear at full
+    size (`cli.build`: 2^20 permutations, a 2^17 x 2,384 trace with s-box
+    registers, 2,256 constraints, new_benchmark_high_arity()) under the
+    keccak config (phase `babybear`) or the Poseidon2 config
+    (`babybear_poseidon2`, the duplex kernels' <21, 7>), through
+    `device_fs_phase` (probes: a changed opened trace value, commit-phase
+    sibling digest and s-box register value; two warm turns of each
+    prover under the keccak config, one under the Poseidon2 config, for
+    the script's time), then the transcript chain call by call. Returns its launches, per-proof bounds, profiled device
+    time by kernel and the proof's size."""
+    from plonky3_tpu_torch import cli
+
+    log_n = 17
+    phase = "babybear" if merkle == "keccak-f" else "babybear_poseidon2"
+    t0 = time.perf_counter()
+    job = cli.build("baby-bear", "poseidon-2-permutations", log_n, 3,
+                    "benchmark-high-arity", merkle, "cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if job.trace.shape != (1 << log_n, BABYBEAR_WIDTH):
+        raise AssertionError(f"BabyBear trace {tuple(job.trace.shape)}")
+    if merkle == "keccak-f":
+        path, stray = FAST_PATH, P2_KERNELS
+    else:
+        path = BABYBEAR_POSEIDON2_PATH
+        stray = KECCAK_KERNELS + P2_KERNELS[:2]
+    out = device_fs_phase(
+        torch, kernels, card, phase, (job.config, job.air, job.trace), path,
+        stray, ("prove", "fast", "fast", "prove") if merkle == "keccak-f"
+        else ("fast", "prove"),
+        ("trace_local", "commit_phase_sibling_digest", "trace_register"),
+        {"rows": 1 << log_n, "width": job.air.width,
+         "perms": 8 << log_n, "constraints": 282 * 8,
+         "trace_gen_s": gen_s, "objective": job.objective})
+    calls = out.pop("calls")
+    if merkle == "keccak-f":
+        emit({"phase": f"{phase}_chain_calls",
+              "calls": [{"n": a[2], "k": a[3], "us": ms * 1e3,
+                         "bound_us": chain_bound(card, a[2], a[3])[0] * 1e3}
+                        for fn, a, ms in calls if fn == "keccak256_chain"]})
+        return out
+    chains = [(a[2], ms) for fn, a, ms in calls
+              if fn == "poseidon2_duplex_chain"]
+    longest = max(n for n, _ in chains)
+    if longest != P2_ALPHA2_WORDS_BABYBEAR:
+        raise AssertionError(f"the longest duplex absorb took {longest} "
+                             f"words, the kernels phase "
+                             f"{P2_ALPHA2_WORDS_BABYBEAR}")
+    emit({"phase": f"{phase}_chain_calls", "longest_words": longest,
+          "calls": [{"n": n, "blocks": max(1, -(-n // 16)), "us": ms * 1e3,
+                     "bound_us": p2_chain_bound(card, n, BABYBEAR_P2)[0]
+                     * 1e3} for n, ms in chains],
+          "grind_us": [ms * 1e3 for fn, _, ms in calls
+                       if fn == "poseidon2_grind"]})
+    return out
+
+
+def phase_cli(torch, babybear):
+    """One run of the port's CLI in its own process, as a user runs it
+    (`python -m plonky3_tpu_torch.cli` with CLI_ARGS, on the card): it
+    exits 0 and prints the objective line, the spans, the `babybear`
+    phase's proof size and the soundness line."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the child process needs the card's memory
+    cmd = [sys.executable, "-m", "plonky3_tpu_torch.cli", *CLI_ARGS]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                         cwd=Path(__file__).resolve().parent)
+    secs = time.perf_counter() - t0
+    lines = run.stdout.splitlines()
+    if run.returncode != 0:
+        raise AssertionError(f"the CLI exited {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    size = f"  proof size: {babybear['proof_bytes']} bytes"
+    wanted = ["objective: 1048576 Poseidon2-16 permutations (8/row x 2^17 "
+              "rows, width 2384)", size]
+    missing = [w for w in wanted if w not in lines]
+    spans = [ln for ln in lines if ln.startswith("  ") and " ms" in ln]
+    if (missing or not any("prove (total, run 0)" in ln for ln in spans)
+            or not any(re.match(r"  soundness: [\d.]+ bits conjectured, "
+                                r"[\d.]+ proven$", ln) for ln in lines)):
+        raise AssertionError(f"the CLI's report lacks {missing}: {lines}")
+    emit({"phase": "cli", "argv": cmd[1:], "rc": run.returncode,
+          "seconds": secs, "proof_bytes": babybear["proof_bytes"],
+          "stdout": lines})
+
+
 
 def host_cpu() -> str:
     """The first CPU's model name with its vendor, family, model and
@@ -1932,6 +2152,11 @@ def _bump_trace_root(proof, E):
     proof.commitments.trace = ((root[0] + 1) % E.base.P,) + tuple(root[1:])
 
 
+def _bump_trace_column(proof, E, col):
+    ov = proof.opened_values
+    ov.trace_local[col] = E.add_h(ov.trace_local[col], E.one_h())
+
+
 def _with_extra_constraint(air):
     """`air` with one more constraint: its first trace column is zero."""
     class Extra(type(air)):
@@ -1961,6 +2186,11 @@ def phase_verify(config, air, proof, log_n, phase="verify",
                        (OodEvaluationMismatch, InvalidOpeningArgument)),
         "commit_phase_sibling_digest": (_bump_sibling_digest,
                                         (InvalidOpeningArgument,)),
+        # an s-box register of Poseidon2VectorAir (BabyBear): the first
+        # permutation's first full round, lane 0
+        "trace_register": (
+            lambda p, E: _bump_trace_column(p, E, air._off_full(0, 0)[0]),
+            (OodEvaluationMismatch, InvalidOpeningArgument)),
         "other_air": (None, (OodEvaluationMismatch,))}
     t0 = time.perf_counter()
     verify(config, air, proof, [])  # raises on a rejection
@@ -2048,8 +2278,10 @@ PROFILE_NAMES = {"ntt_k1": ("ntt_kernel<", "true>"),
                  "keccak_ladder": ("merkle_ladder_kernel",),
                  "keccak256_chain": ("keccak256_chain_kernel",),
                  "keccak_grind": ("keccak_grind_kernel",),
-                 "poseidon2_duplex_chain": ("duplex_chain_kernel",),
-                 "poseidon2_grind": ("duplex_grind_kernel",)}
+                 "poseidon2_duplex_chain": ("duplex_chain_kernel<23",),
+                 "poseidon2_grind": ("duplex_grind_kernel<23",),
+                 "poseidon2_duplex_chain_babybear": ("duplex_chain_kernel<21",),
+                 "poseidon2_grind_babybear": ("duplex_grind_kernel<21",)}
 
 
 def main(argv=None) -> int:
@@ -2078,22 +2310,34 @@ def main(argv=None) -> int:
     timed("keccak_air_small", phase_keccak_air_small, torch, np)
     timed("blake3_air_small", phase_blake3_air_small, torch, np)
     timed("periodic", phase_periodic, torch, np)
+    timed("babybear_small", phase_babybear_small, torch, np)
     full = timed("full", phase_full, torch, np, kernels, card)
     fast = timed("fast", phase_fast, torch, np, kernels, card, full)
     p2 = timed("poseidon2", phase_poseidon2, torch, np, kernels, card)
     kair = timed("keccak_air", phase_keccak_air, torch, np, kernels, card)
     b3 = timed("blake3_air", phase_blake3_air, torch, np, kernels, card)
+    bb = timed("babybear", phase_babybear, torch, np, kernels, card,
+               "keccak-f")
+    timed("cli", phase_cli, torch, bb)
+    bbp2 = timed("babybear_poseidon2", phase_babybear, torch, np, kernels,
+                 card, "poseidon2")
     # launches, proof_* : the main path (the fast prover) of the kernel's
-    # config, keccak or (the duplex transcript's kernels) Poseidon2;
-    # *_prove: the keccak config's prove(); *_poseidon2: the NTT kernels
-    # on the Poseidon2 path; *_keccak_air, *_blake3_air: the fast
-    # prover's kernels on the keccak-AIR path (2^17 x 2,633) and the
-    # Blake3-AIR path (2^17 x 9,168), keccak config. proof_ms: the
-    # kernel's launches of one prove timed by CUDA events;
-    # proof_profiled_ms: by torch.profiler, where it recorded every
-    # launch. Every per-proof share goes through share().
+    # config, keccak or (the duplex transcript's kernels) Poseidon2, and
+    # for BabyBear's duplex kernels (<21, 7>, `*_babybear`) the BabyBear
+    # Poseidon2 path; *_prove: the keccak config's prove(); *_poseidon2:
+    # the NTT kernels on the Poseidon2 path; *_keccak_air, *_blake3_air,
+    # *_babybear: the fast prover's kernels on the keccak-AIR path (2^17
+    # x 2,633), the Blake3-AIR path (2^17 x 9,168) and the BabyBear path
+    # (2^17 x 2,384), keccak config; *_babybear_poseidon2: the NTT kernels
+    # on the BabyBear Poseidon2 path. proof_ms: the kernel's launches of
+    # one prove timed by CUDA events; proof_profiled_ms: by
+    # torch.profiler, where it recorded every launch. Every per-proof
+    # share goes through share().
     for name, rec in records.items():
-        main = p2 if name.startswith("poseidon2") else fast
+        if name.endswith("_babybear"):
+            main = bbp2
+        else:
+            main = p2 if name.startswith("poseidon2") else fast
         paths = [("", main)]
         if main is fast:
             paths.append(("_prove", full))
@@ -2102,11 +2346,13 @@ def main(argv=None) -> int:
         if name in POSEIDON2_PATH and main is fast:
             paths.append(("_poseidon2", p2))
             rec["launches_poseidon2"] = p2["launches"][name]
+            paths.append(("_babybear_poseidon2", bbp2))
+            rec["launches_babybear_poseidon2"] = bbp2["launches"][name]
         if name in FAST_PATH:
-            paths.append(("_keccak_air", kair))
-            rec["launches_keccak_air"] = kair["launches"][name]
-            paths.append(("_blake3_air", b3))
-            rec["launches_blake3_air"] = b3["launches"][name]
+            for key, got in (("_keccak_air", kair), ("_blake3_air", b3),
+                             ("_babybear", bb)):
+                paths.append((key, got))
+                rec[f"launches{key}"] = got["launches"][name]
         rec["launches"] = main["launches"][name]
         for key, got in paths:
             if name not in got["per_proof"]:

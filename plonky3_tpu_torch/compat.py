@@ -28,3 +28,48 @@ def trace_inputs_from_numpy(arr_u32: np.ndarray, device) -> torch.Tensor:
 def fri_params_from(obj) -> FriParameters:
     """Copy the fields of any FriParameters-like object."""
     return FriParameters(**{k: int(getattr(obj, k)) for k in _FRI_FIELDS})
+
+
+def _ints(x):
+    """Nested sequences of integers (numpy included) -> tuples of ints."""
+    if isinstance(x, (int, np.integer)):
+        return int(x)
+    return tuple(_ints(v) for v in x)
+
+
+def field_from(obj):
+    """The port's field (or degree-4 extension) with the constants of
+    another package's field object: matched by name, and every normative
+    constant must agree (ValueError otherwise)."""
+    from . import fields
+
+    base = getattr(obj, "base", None)
+    if base is not None:  # a binomial extension
+        port = {("KoalaBear", 4): fields.KoalaBearExt4,
+                ("BabyBear", 4): fields.BabyBearExt4}.get((base.name, obj.D))
+        keys = ("D", "W", "DTH_ROOT", "EXT_GENERATOR", "EXT_TWO_ADICITY")
+    else:
+        port = {"KoalaBear": fields.KoalaBear,
+                "BabyBear": fields.BabyBear}.get(getattr(obj, "name", None))
+        keys = ("P", "MU", "TWO_ADICITY", "GENERATOR", "TWO_ADIC_GENERATORS")
+    if port is None:
+        raise ValueError(f"no port field for {obj!r}")
+    for k in keys:
+        got, want = _ints(getattr(obj, k)), _ints(getattr(port, k))
+        if got != want:
+            raise ValueError(f"{k} differs: {got} against the port's {want}")
+    if base is not None:
+        field_from(base)
+    return port
+
+
+def poseidon2_from(perm):
+    """A port `Poseidon2` with another package's permutation's field (by
+    `field_from`), width, s-box degree and round constants."""
+    from .hashes.poseidon2 import Poseidon2
+
+    return Poseidon2(
+        F=field_from(perm.F), width=int(perm.width), d=int(perm.d),
+        rc_external_initial=_ints(perm.rc_external_initial),
+        rc_external_final=_ints(perm.rc_external_final),
+        rc_internal=_ints(perm.rc_internal))

@@ -1,7 +1,10 @@
 // The Poseidon2 duplex transcript's two kernels for Hopper (sm_90a): the
 // duplex chain and the proof-of-work grind of the Poseidon2 config's
 // DuplexChallenger<F, Perm24, 24, 16> (challenger/src/duplex_challenger.rs:33),
-// over a 31-bit Montgomery field (KoalaBear).
+// over a 31-bit Montgomery field: KoalaBear (23 internal rounds, s-box x^3)
+// or BabyBear (21 internal rounds, s-box x^7). Every kernel is a template
+// on the internal rounds R and the s-box degree D; the C entries take the
+// pair and launch <23, 3> or <21, 7>, and refuse any other.
 //
 // Neither replaces a TPU kernel: the JAX package computes both in jnp
 // (plonky3_tpu/challenger/device_duplex.py: the `lax.scan` absorb of
@@ -14,11 +17,12 @@
 //
 // The permutation (poseidon2/src/lib.rs:139): the external layer (MDS-light,
 // circ(2M4, M4, ...), external.rs:113), 4 external rounds (round constants,
-// s-box x^3 on every lane, external layer), 23 internal rounds (constant and
+// s-box x^D on every lane, external layer), R internal rounds (constant and
 // s-box on lane 0, then sum + V_i·s_i, monty-31/src/poseidon2.rs:77-90),
-// 4 external rounds. State words are Montgomery-form u32 in [0, p); a
-// product is a 64-bit product and its Montgomery reduction, an add a
-// conditional subtraction. Every result is the canonical field element,
+// 4 external rounds. x^3 is x2·x; x^7 is x4·x3 with x2 = x·x, x3 = x2·x,
+// x4 = x2·x2: four products, three deep. State words are Montgomery-form
+// u32 in [0, p); a product is a 64-bit product and its Montgomery
+// reduction, an add a conditional subtraction. Every result is the canonical field element,
 // so any order of exact field operations gives the same bits. The table
 // (hashes/poseidon2_cuda.py::kernel_table) holds the round constants and
 // the diagonal in Montgomery form, then the chain's internal-round tables.
@@ -26,17 +30,18 @@
 // The chain (`duplex_chain_kernel`) is serial by definition: each block
 // absorbs into the state the previous block left. Its bound is latency:
 // the depth of the function's shortest dependency graph, 402 dependent
-// 32-bit instructions a permutation (POSEIDON2_24_DEPTH in chip_smoke.py,
-// 392 each after the first in a chain), times the card's latency of a
-// dependent instruction. This kernel's own graph is 574 deep before its
-// shuffles: M4, the position sum and its add (7 adds a layer, where 6
+// 32-bit instructions a KoalaBear permutation (p2_counts in chip_smoke.py,
+// 392 each after the first in a chain; BabyBear's 498), times the card's
+// latency of a dependent instruction. KoalaBear's graph in this kernel is
+// 574 deep before its shuffles: M4, the position sum and its add (7 adds a layer, where 6
 // suffice), each round constant's add on the path, and lane 0's product
 // by V_0 where V_0 = -2 makes it a subtraction. One
 // thread holding all 24 words would issue some 8,500 instructions a
 // permutation, 31 lanes idle beside each. The design is one warp a
 // chain, lane i < 24 holding state word i, so a round issues one
 // instruction where a thread would issue 24:
-// - an external round: each lane adds its constant and cubes its word;
+// - an external round: each lane adds its constant and raises its word to
+//   the D-th power;
 //   M4 inside each group of four lanes as out_k = (x0+x1+x2+x3) + x_k +
 //   2·x_{k+1} (M4 is circulant), from five shuffles; then each lane adds
 //   the sum of its position over the six groups, six shuffles and a
@@ -45,7 +50,7 @@
 //   For i >= 1 the update x_i' = S + d_i·x_i is linear, so
 //   Q_k = sum_{i>=1} d_i^k·x_i follows Q_k' = c_k·S + Q_{k+1} with
 //   c_k = sum_{i>=1} d_i^k. When the internal rounds start, lane i forms
-//   d_i^k·x_i for k = 0..22 and a reduce-scatter over the warp (31
+//   d_i^k·x_i for k = 0..R-1 and a reduce-scatter over the warp (31
 //   shuffles) leaves Q_k in lane k. A round then is lane 0's s-box and
 //   S = s + Q_0, one broadcast of S, and in every lane x' = S + d·x (lane
 //   0: S + d_0·s) and Q' = c·S + (the next lane's Q); the shift of Q runs
@@ -86,23 +91,26 @@ namespace {
 constexpr int WIDTH = 24;
 constexpr int RATE = 16;
 constexpr int HALF_FULL = 4;
-constexpr int PARTIAL = 23;
-// the constant table: rc_ei (4 x 24), rc_int (23), rc_ef (4 x 24), diag (24),
-// then the chain's: d_i^k (23 x 24, row k; 0 in column 0), c_k (24, c_23 = 0),
-// then the grind's: d_i in standard form (24) and floor(d_i·2^32 / p) (24)
-constexpr int OFF_EI = 0;
-constexpr int OFF_INT = HALF_FULL * WIDTH;
-constexpr int OFF_EF = OFF_INT + PARTIAL;
-constexpr int OFF_DIAG = OFF_EF + HALF_FULL * WIDTH;
-constexpr int TABLE = OFF_DIAG + WIDTH;
-constexpr int OFF_POW = TABLE;
-constexpr int OFF_CSUM = OFF_POW + PARTIAL * WIDTH;
-constexpr int OFF_SHOUP = OFF_CSUM + WIDTH;
-// the grind's table in shared memory: the round constants (the table's
-// first OFF_DIAG words), then the OFF_SHOUP words
-constexpr int GRIND_TABLE = OFF_DIAG + 2 * WIDTH;
+
+// The constant table of R internal rounds: rc_ei (4 x 24), rc_int (R),
+// rc_ef (4 x 24), diag (24), then the chain's: d_i^k (R x 24, row k; 0 in
+// column 0), c_k (24, 0 from c_R on), then the grind's: d_i in standard
+// form (24) and floor(d_i·2^32 / p) (24).
+template <int R>
+struct Table {
+    static constexpr int EI = 0;
+    static constexpr int INT = HALF_FULL * WIDTH;
+    static constexpr int EF = INT + R;
+    static constexpr int DIAG = EF + HALF_FULL * WIDTH;
+    static constexpr int POW = DIAG + WIDTH;
+    static constexpr int CSUM = POW + R * WIDTH;
+    static constexpr int SHOUP = CSUM + WIDTH;
+    // the grind's table in shared memory: the round constants (the
+    // table's first DIAG words), then the SHOUP words
+    static constexpr int GRIND = DIAG + 2 * WIDTH;
+};
 // the grind's blocks: GRIND_THREADS threads, at most GRIND_BLOCKS_PER_SM
-// resident on each SM (R, the round's size, in the note on the grind)
+// resident on each SM (N, the round's size, in the note on the grind)
 constexpr int GRIND_THREADS = 128;
 constexpr int GRIND_BLOCKS_PER_SM = 2;
 constexpr int MAX_DEVICES = 64;
@@ -145,8 +153,12 @@ __device__ __forceinline__ uint32_t shoup(uint32_t x, uint32_t d, uint32_t dq, u
     return min(r, r - p);
 }
 
+template <int D>
 __device__ __forceinline__ uint32_t sbox(uint32_t x, Field f) {
-    return mmul(mmul(x, x, f), x, f);
+    static_assert(D == 3 || D == 7, "the s-box degrees are 3 and 7");
+    const uint32_t x2 = mmul(x, x, f), x3 = mmul(x2, x, f);
+    if (D == 3) return x3;
+    return mmul(mmul(x2, x2, f), x3, f);
 }
 
 // M4 on each block of four, then each lane plus the sum of its position
@@ -174,16 +186,18 @@ __device__ __forceinline__ void mds_light(uint32_t (&st)[WIDTH], uint32_t p) {
     for (int i = 0; i < WIDTH; ++i) st[i] = madd(st[i], s[i & 3], p);
 }
 
+template <int D>
 __device__ __forceinline__ void external_round(uint32_t (&st)[WIDTH],
                                                const uint32_t* rc, Field f) {
 #pragma unroll
-    for (int i = 0; i < WIDTH; ++i) st[i] = sbox(madd(st[i], rc[i], f.p), f);
+    for (int i = 0; i < WIDTH; ++i) st[i] = sbox<D>(madd(st[i], rc[i], f.p), f);
     mds_light(st, f.p);
 }
 
 // Words 1..23's sum (four interleaved partial sums) and their products by
 // the diagonal (d: standard form, dq: its Shoup quotients) do not wait for
 // word 0's s-box: only the last add of the sum and the adds after it do.
+template <int D>
 __device__ __forceinline__ void internal_round(uint32_t (&st)[WIDTH], uint32_t rc,
                                                const uint32_t (&d)[WIDTH],
                                                const uint32_t (&dq)[WIDTH], Field f) {
@@ -196,47 +210,50 @@ __device__ __forceinline__ void internal_round(uint32_t (&st)[WIDTH], uint32_t r
         if (i + 3 < WIDTH) s3 = madd(s3, st[i + 3], f.p);
     }
     const uint32_t rest = madd(madd(s0, s1, f.p), madd(s2, s3, f.p), f.p);
-    st[0] = sbox(madd(st[0], rc, f.p), f);
+    st[0] = sbox<D>(madd(st[0], rc, f.p), f);
     const uint32_t sum = madd(st[0], rest, f.p);
 #pragma unroll
     for (int i = 0; i < WIDTH; ++i) st[i] = madd(sum, shoup(st[i], d[i], dq[i], f.p), f.p);
 }
 
 // The whole-state permutation in one thread, as the grind runs it for
-// candidate `cand` (c: the grind's table in shared memory). Before each
+// candidate `cand` (c: the grind's table in shared memory, laid out by
+// Table<R>). Before each
 // external round and every GRIND_CHECK_INTERNAL internal rounds it gives
 // the candidate up if it is above `last`, a value that *best held (*best
 // only falls, so the candidate is then above the final *best), and reads
 // *best into `last` for the next look, so no look waits for a load.
 // Returns false if the candidate was given up.
+template <int R, int D>
 __device__ bool permute_open(uint32_t (&st)[WIDTH], const uint32_t* c, Field f,
                              uint32_t cand, uint32_t& last, const volatile uint32_t* seen) {
+    using T = Table<R>;
     mds_light(st, f.p);
 #pragma unroll 1
     for (int r = 0; r < HALF_FULL; ++r) {
         if (cand > last) return false;
         last = *seen;
-        external_round(st, c + OFF_EI + r * WIDTH, f);
+        external_round<D>(st, c + T::EI + r * WIDTH, f);
     }
     uint32_t d[WIDTH], dq[WIDTH];
 #pragma unroll
     for (int i = 0; i < WIDTH; ++i) {
-        d[i] = c[OFF_DIAG + i];
-        dq[i] = c[OFF_DIAG + WIDTH + i];
+        d[i] = c[T::DIAG + i];
+        dq[i] = c[T::DIAG + WIDTH + i];
     }
 #pragma unroll 1
-    for (int r = 0; r < PARTIAL; ++r) {
+    for (int r = 0; r < R; ++r) {
         if (r % GRIND_CHECK_INTERNAL == 0) {
             if (cand > last) return false;
             last = *seen;
         }
-        internal_round(st, c[OFF_INT + r], d, dq, f);
+        internal_round<D>(st, c[T::INT + r], d, dq, f);
     }
 #pragma unroll 1
     for (int r = 0; r < HALF_FULL; ++r) {
         if (cand > last) return false;
         last = *seen;
-        external_round(st, c + OFF_EF + r * WIDTH, f);
+        external_round<D>(st, c + T::EF + r * WIDTH, f);
     }
     return true;
 }
@@ -247,8 +264,9 @@ __device__ bool permute_open(uint32_t (&st)[WIDTH], const uint32_t* c, Field f,
 // below is a lane < 24. Their constants are 0.
 
 // One lane's constants, loaded once a launch.
+template <int R>
 struct WarpConsts {
-    uint32_t pow_diag[PARTIAL];  // d_i^k (0 in lane 0 and lanes >= 24)
+    uint32_t pow_diag[R];        // d_i^k (0 in lane 0 and lanes >= 24)
     uint32_t diag;               // d_i
     uint32_t c_lane;             // c_i: the shift register's constant
     int group, next, pos;        // the lane's group of four, x_{k+1}'s lane, k
@@ -256,32 +274,37 @@ struct WarpConsts {
 
 // The round constants in shared memory, each row with a spare one after
 // it: a round reads the next round's constant while it runs.
+template <int R>
 struct WarpTables {
     uint32_t rc_ext[2 * HALF_FULL + 1][32];  // [round][lane], 0 in lanes >= 24
-    uint32_t rc_int[PARTIAL + 1];
+    uint32_t rc_int[R + 1];
 };
 
-__device__ __forceinline__ void load_consts(WarpConsts& c, WarpTables& s,
+template <int R>
+__device__ __forceinline__ void load_consts(WarpConsts<R>& c, WarpTables<R>& s,
                                             const uint32_t* __restrict__ t, int lane) {
+    using T = Table<R>;
+    static_assert(R < 32, "lane k < R holds the shift register's Q_k");
     const bool word = lane < WIDTH;
 #pragma unroll
     for (int r = 0; r < HALF_FULL; ++r) {
-        s.rc_ext[r][lane] = word ? t[OFF_EI + r * WIDTH + lane] : 0u;
-        s.rc_ext[HALF_FULL + r][lane] = word ? t[OFF_EF + r * WIDTH + lane] : 0u;
+        s.rc_ext[r][lane] = word ? t[T::EI + r * WIDTH + lane] : 0u;
+        s.rc_ext[HALF_FULL + r][lane] = word ? t[T::EF + r * WIDTH + lane] : 0u;
     }
     s.rc_ext[2 * HALF_FULL][lane] = 0u;
-    if (lane <= PARTIAL) s.rc_int[lane] = lane < PARTIAL ? t[OFF_INT + lane] : 0u;
+    if (lane <= R) s.rc_int[lane] = lane < R ? t[T::INT + lane] : 0u;
 #pragma unroll
-    for (int k = 0; k < PARTIAL; ++k) c.pow_diag[k] = word ? t[OFF_POW + k * WIDTH + lane] : 0u;
-    c.diag = word ? t[OFF_DIAG + lane] : 0u;
-    c.c_lane = word ? t[OFF_CSUM + lane] : 0u;
+    for (int k = 0; k < R; ++k) c.pow_diag[k] = word ? t[T::POW + k * WIDTH + lane] : 0u;
+    c.diag = word ? t[T::DIAG + lane] : 0u;
+    c.c_lane = word ? t[T::CSUM + lane] : 0u;
     c.pos = lane & 3;
     c.group = lane & ~3;
     c.next = c.group | ((lane + 1) & 3);
 }
 
 // The external layer on the lane's word.
-__device__ __forceinline__ uint32_t layer_warp(uint32_t x, const WarpConsts& c, uint32_t p) {
+template <int R>
+__device__ __forceinline__ uint32_t layer_warp(uint32_t x, const WarpConsts<R>& c, uint32_t p) {
     const uint32_t a0 = __shfl_sync(ALL, x, c.group), a1 = __shfl_sync(ALL, x, c.group + 1),
                    a2 = __shfl_sync(ALL, x, c.group + 2), a3 = __shfl_sync(ALL, x, c.group + 3),
                    y = __shfl_sync(ALL, x, c.next);
@@ -296,14 +319,15 @@ __device__ __forceinline__ uint32_t layer_warp(uint32_t x, const WarpConsts& c, 
 }
 
 // HALF_FULL external rounds from row r0 of the constants.
-__device__ __forceinline__ uint32_t external_warp(uint32_t x, const WarpTables& s, int r0,
-                                                  const WarpConsts& c, int lane, Field f) {
+template <int R, int D>
+__device__ __forceinline__ uint32_t external_warp(uint32_t x, const WarpTables<R>& s, int r0,
+                                                  const WarpConsts<R>& c, int lane, Field f) {
     uint32_t k = s.rc_ext[r0][lane];
 #pragma unroll
     for (int r = r0; r < r0 + HALF_FULL; ++r) {
         const uint32_t kr = k;
         k = s.rc_ext[r + 1][lane];
-        x = layer_warp(sbox(madd(x, kr, f.p), f), c, f.p);
+        x = layer_warp(sbox<D>(madd(x, kr, f.p), f), c, f.p);
     }
     return x;
 }
@@ -320,15 +344,16 @@ __device__ __forceinline__ void scatter_step(uint32_t (&v)[32], int lane, uint32
     }
 }
 
-// The 23 internal rounds (see the note at the top); returns the lane's word.
-__device__ __forceinline__ uint32_t internal_warp(uint32_t x, const WarpTables& st,
-                                                  const WarpConsts& c, int lane, Field f) {
+// The R internal rounds (see the note at the top); returns the lane's word.
+template <int R, int D>
+__device__ __forceinline__ uint32_t internal_warp(uint32_t x, const WarpTables<R>& st,
+                                                  const WarpConsts<R>& c, int lane, Field f) {
     const uint32_t p = f.p;
-    // reduce-scatter of v[k] = d_i^k·x_i: lane k ends with Q_k (k < 23; 0
+    // reduce-scatter of v[k] = d_i^k·x_i: lane k ends with Q_k (k < R; 0
     // above)
     uint32_t v[32];
 #pragma unroll
-    for (int k = 0; k < 32; ++k) v[k] = k < PARTIAL ? mmul(c.pow_diag[k], x, f) : 0u;
+    for (int k = 0; k < 32; ++k) v[k] = k < R ? mmul(c.pow_diag[k], x, f) : 0u;
     scatter_step<16>(v, lane, p);
     scatter_step<8>(v, lane, p);
     scatter_step<4>(v, lane, p);
@@ -337,10 +362,10 @@ __device__ __forceinline__ uint32_t internal_warp(uint32_t x, const WarpTables& 
     uint32_t q = v[0];  // Q_lane
     uint32_t k = st.rc_int[0];
 #pragma unroll
-    for (int r = 0; r < PARTIAL; ++r) {
+    for (int r = 0; r < R; ++r) {
         const uint32_t kr = k;
         k = st.rc_int[r + 1];
-        const uint32_t s = sbox(madd(x, kr, p), f);  // lane 0: s_r
+        const uint32_t s = sbox<D>(madd(x, kr, p), f);  // lane 0: s_r
         const uint32_t S = madd(s, q, p);            // lane 0: S_r = s_r + Q_0
         const uint32_t qn = __shfl_down_sync(ALL, q, 1), Sb = __shfl_sync(ALL, S, 0);
         // lane 0 takes its own S and s: x_0' = S + d_0·s
@@ -351,12 +376,13 @@ __device__ __forceinline__ uint32_t internal_warp(uint32_t x, const WarpTables& 
     return x;
 }
 
-__device__ __forceinline__ uint32_t permute_warp(uint32_t x, const WarpTables& s,
-                                                 const WarpConsts& c, int lane, Field f) {
+template <int R, int D>
+__device__ __forceinline__ uint32_t permute_warp(uint32_t x, const WarpTables<R>& s,
+                                                 const WarpConsts<R>& c, int lane, Field f) {
     x = layer_warp(x, c, f.p);
-    x = external_warp(x, s, 0, c, lane, f);
-    x = internal_warp(x, s, c, lane, f);
-    return external_warp(x, s, HALF_FULL, c, lane, f);
+    x = external_warp<R, D>(x, s, 0, c, lane, f);
+    x = internal_warp<R, D>(x, s, c, lane, f);
+    return external_warp<R, D>(x, s, HALF_FULL, c, lane, f);
 }
 
 // The state after absorbing n words (duplex_challenger.rs:92-117): blocks of
@@ -364,13 +390,14 @@ __device__ __forceinline__ uint32_t permute_warp(uint32_t x, const WarpTables& s
 // words overwrites lanes 0..k-1, zeroes lanes k..RATE-1 and adds k to lane
 // RATE, then the state is permuted. n = 0 is one bare permutation (a
 // duplexing with an empty input buffer). One warp, lane i < 24 state word i.
+template <int R, int D>
 __global__ void __launch_bounds__(32)
 duplex_chain_kernel(const uint32_t* __restrict__ state, const uint32_t* __restrict__ words,
                     long long n, uint32_t* __restrict__ out,
                     const uint32_t* __restrict__ table, Field f) {
-    __shared__ WarpTables s;
+    __shared__ WarpTables<R> s;
     const int lane = threadIdx.x;
-    WarpConsts c;
+    WarpConsts<R> c;
     load_consts(c, s, table, lane);
     __syncwarp();
     uint32_t x = lane < WIDTH ? state[lane] : 0u;
@@ -387,7 +414,7 @@ duplex_chain_kernel(const uint32_t* __restrict__ state, const uint32_t* __restri
             const long long i = (b + 1) * RATE + lane;
             nxt = lane < RATE && i < n ? words[i] : 0u;
         }
-        x = permute_warp(x, s, c, lane, f);
+        x = permute_warp<R, D>(x, s, c, lane, f);
     }
     if (lane < WIDTH) out[lane] = x;
 }
@@ -398,9 +425,9 @@ duplex_chain_kernel(const uint32_t* __restrict__ state, const uint32_t* __restri
 // zero. *best holds 0xFFFFFFFF on entry and the witness on exit (still
 // 0xFFFFFFFF if none exists).
 //
-// The grid is persistent: R = gridDim.x · GRIND_THREADS threads, all
-// resident at once. Round r covers candidates [r·R, (r + 1)·R), thread s
-// taking r·R + s; before each round, and at each look inside the
+// The grid is persistent: N = gridDim.x · GRIND_THREADS threads, all
+// resident at once. Round r covers candidates [r·N, (r + 1)·N), thread s
+// taking r·N + s; before each round, and at each look inside the
 // permutation, a thread stops if its candidate exceeds *best as it last
 // read it, and a thread whose candidate passes atomicMins it into *best
 // and stops. Why the smallest passing witness wins whatever the order of
@@ -410,17 +437,19 @@ duplex_chain_kernel(const uint32_t* __restrict__ state, const uint32_t* __restri
 // that stops at a pass skips only candidates above that pass; so every
 // candidate below the final *best was tried and failed. Once *best holds
 // a pass of round r, no thread starts a candidate of a later round.
+template <int R, int D>
 __global__ void __launch_bounds__(GRIND_THREADS)
 duplex_grind_kernel(const uint32_t* __restrict__ base, int lane, uint32_t mask,
                     const uint32_t* __restrict__ table, Field f,
                     uint32_t* __restrict__ best) {
-    __shared__ uint32_t c[GRIND_TABLE];
+    using T = Table<R>;
+    __shared__ uint32_t c[T::GRIND];
     __shared__ uint32_t b0[WIDTH];
-    for (int i = threadIdx.x; i < GRIND_TABLE; i += GRIND_THREADS)
-        c[i] = table[i < OFF_DIAG ? i : OFF_SHOUP + i - OFF_DIAG];
+    for (int i = threadIdx.x; i < T::GRIND; i += GRIND_THREADS)
+        c[i] = table[i < T::DIAG ? i : T::SHOUP + i - T::DIAG];
     if (threadIdx.x < WIDTH) b0[threadIdx.x] = base[threadIdx.x];
     __syncthreads();
-    const uint32_t in_flight = gridDim.x * GRIND_THREADS;  // R, below 2^31
+    const uint32_t in_flight = gridDim.x * GRIND_THREADS;  // N, below 2^31
     const volatile uint32_t* seen = best;
     uint32_t last = *seen;  // a value *best held, read inside the last candidate
     for (uint32_t cand = blockIdx.x * GRIND_THREADS + threadIdx.x;
@@ -429,7 +458,7 @@ duplex_grind_kernel(const uint32_t* __restrict__ base, int lane, uint32_t mask,
         uint32_t st[WIDTH];
 #pragma unroll
         for (int i = 0; i < WIDTH; ++i) st[i] = i == lane ? wm : b0[i];
-        if (!permute_open(st, c, f, cand, last, seen)) break;
+        if (!permute_open<R, D>(st, c, f, cand, last, seen)) break;
         if ((mmul(st[RATE - 1], 1u, f) & mask) == 0) {
             atomicMin(best, cand);
             break;
@@ -439,7 +468,8 @@ duplex_grind_kernel(const uint32_t* __restrict__ base, int lane, uint32_t mask,
 
 // The grind's grid on the current device: its resident blocks an SM (the
 // occupancy, at most GRIND_BLOCKS_PER_SM) times the SMs, queried once a
-// device.
+// device and instantiation.
+template <int R, int D>
 cudaError_t grind_grid(unsigned* grid) {
     static unsigned cached[MAX_DEVICES];
     int dev = 0;
@@ -448,7 +478,7 @@ cudaError_t grind_grid(unsigned* grid) {
     if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
     if (cached[dev] == 0) {
         int per_sm = 0, sms = 0;
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, duplex_grind_kernel,
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, duplex_grind_kernel<R, D>,
                                                           GRIND_THREADS, 0);
         if (e == cudaSuccess)
             e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -465,36 +495,59 @@ bool field_ok(unsigned p, unsigned mu) {
     return p > 2 && p < (1u << 31) && (uint32_t)(p * mu) == 1u;
 }
 
+template <int R, int D>
+int launch_chain(const void* state, const void* words, long long n, void* out,
+                 const void* table, Field f, cudaStream_t stream) {
+    duplex_chain_kernel<R, D><<<1, 32, 0, stream>>>(
+        (const uint32_t*)state, (const uint32_t*)words, n, (uint32_t*)out,
+        (const uint32_t*)table, f);
+    return (int)cudaGetLastError();
+}
+
+template <int R, int D>
+int launch_grind(const void* base, int lane, uint32_t mask, const void* table, Field f,
+                 void* best, cudaStream_t stream) {
+    unsigned grid = 0;
+    const cudaError_t e = grind_grid<R, D>(&grid);
+    if (e != cudaSuccess) return (int)e;
+    duplex_grind_kernel<R, D><<<grid, GRIND_THREADS, 0, stream>>>(
+        (const uint32_t*)base, lane, mask, (const uint32_t*)table, f, (uint32_t*)best);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // state: (24,) u32 Montgomery words; words: n >= 0 of them; out: (24,), the
-// state after the absorb; table: the constant table; stream: a cudaStream_t.
+// state after the absorb; table: the constant table of `rounds` internal
+// rounds; (rounds, degree): (23, 3) KoalaBear or (21, 7) BabyBear; stream:
+// a cudaStream_t.
 int poseidon2_duplex_chain(const void* state, const void* words, long long n, void* out,
                            const void* table, unsigned p, unsigned mu, unsigned r2,
-                           void* stream) {
+                           int rounds, int degree, void* stream) {
     if (n < 0 || !field_ok(p, mu)) return (int)cudaErrorInvalidValue;
-    duplex_chain_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)state, (const uint32_t*)words, n, (uint32_t*)out,
-        (const uint32_t*)table, Field{p, 0u - mu, r2});
-    return (int)cudaGetLastError();
+    const Field f{p, 0u - mu, r2};
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (rounds == 23 && degree == 3) return launch_chain<23, 3>(state, words, n, out, table, f, st);
+    if (rounds == 21 && degree == 7) return launch_chain<21, 7>(state, words, n, out, table, f, st);
+    return (int)cudaErrorInvalidValue;
 }
 
 // base: (24,) u32 Montgomery words, the staged state; best: one u32 holding
-// 0xFFFFFFFF, gets the witness. 0 <= lane < 16, 1 <= pow_bits <= 30.
+// 0xFFFFFFFF, gets the witness. 0 <= lane < 16, 1 <= pow_bits <= 30;
+// (rounds, degree) as for the chain.
 int poseidon2_grind(const void* base, int lane, int pow_bits, const void* table,
-                    unsigned p, unsigned mu, unsigned r2, void* best, void* stream) {
+                    unsigned p, unsigned mu, unsigned r2, int rounds, int degree,
+                    void* best, void* stream) {
     if (lane < 0 || lane >= RATE || pow_bits < 1 || pow_bits > 30 || !field_ok(p, mu))
         return (int)cudaErrorInvalidValue;
-    unsigned grid = 0;
-    const cudaError_t e = grind_grid(&grid);
-    if (e != cudaSuccess) return (int)e;
     const uint32_t mask = (1u << pow_bits) - 1;
-    duplex_grind_kernel<<<grid, GRIND_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)base, lane, mask, (const uint32_t*)table, Field{p, 0u - mu, r2},
-        (uint32_t*)best);
-    return (int)cudaGetLastError();
+    const Field f{p, 0u - mu, r2};
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (rounds == 23 && degree == 3) return launch_grind<23, 3>(base, lane, mask, table, f, best, st);
+    if (rounds == 21 && degree == 7) return launch_grind<21, 7>(base, lane, mask, table, f, best, st);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

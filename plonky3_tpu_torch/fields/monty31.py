@@ -24,7 +24,7 @@ _U32 = np.uint32
 
 @dataclass(frozen=True)
 class Monty31:
-    """A concrete 31-bit Montgomery field (KoalaBear).
+    """A concrete 31-bit Montgomery field (KoalaBear, BabyBear).
 
     Tensor ops take and return int64 tensors in Montgomery form, canonical
     range [0, P); a Python int operand is a Montgomery-form constant."""

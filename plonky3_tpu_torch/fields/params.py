@@ -1,8 +1,11 @@
-"""KoalaBear and its degree-4 extension: the normative constants.
+"""KoalaBear, BabyBear and their degree-4 extensions: the normative
+constants.
 
 Copied from `plonky3_tpu/fields/params.py` (koala-bear/src/koala_bear.rs:
 PRIME :21, MONTY_MU :24, MONTY_GEN :56, TWO_ADIC_GENERATORS :70-77, the
-D=4 binomial extension :101-113). Proofs depend on every value.
+D=4 binomial extension :101-113; baby-bear/src/baby_bear.rs: PRIME
+0x78000001, MONTY_MU 0x88000001, MONTY_GEN 31, TWO_ADICITY 27, the D=4
+extension). Proofs depend on every value.
 """
 
 from __future__ import annotations
@@ -24,8 +27,29 @@ KoalaBear = Monty31(
     ),
 )
 
+BabyBear = Monty31(
+    name="BabyBear",
+    P=0x78000001,  # 2^31 - 2^27 + 1
+    MU=0x88000001,
+    TWO_ADICITY=27,
+    GENERATOR=31,
+    TWO_ADIC_GENERATORS=(
+        0x1, 0x78000000, 0x67055C21, 0x5EE99486, 0xBB4C4E4, 0x2D4CC4DA,
+        0x669D6090, 0x17B56C64, 0x67456167, 0x688442F9, 0x145E952D,
+        0x4FE61226, 0x4C734715, 0x11C33E2A, 0x62C3D2B1, 0x77CAD399,
+        0x54C131F4, 0x4CABD6A6, 0x5CF5713F, 0x3E9430E8, 0xBA067A3,
+        0x18ADC27D, 0x21FD55BC, 0x4B859B3D, 0x3BD57996, 0x4483D85A,
+        0x3A26EEF8, 0x1A427A41,
+    ),
+)
+
 # D=4: W=3, DTH_ROOT=2113994754, EXT_GENERATOR=[2,1,0,0], two-adicity 26.
 KOALABEAR_EXT4 = dict(
     D=4, W=3, DTH_ROOT=2113994754, EXT_GENERATOR=(2, 1, 0, 0),
     EXT_TWO_ADICITY=26,
+)
+# D=4: W=11, DTH_ROOT=1728404513, EXT_GENERATOR=[8,1,0,0], two-adicity 29.
+BABYBEAR_EXT4 = dict(
+    D=4, W=11, DTH_ROOT=1728404513, EXT_GENERATOR=(8, 1, 0, 0),
+    EXT_TWO_ADICITY=29,
 )

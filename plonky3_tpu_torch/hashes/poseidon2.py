@@ -1,10 +1,12 @@
-"""Poseidon2 over KoalaBear, widths 16 and 24, on int64 tensors and numpy.
+"""Poseidon2 over KoalaBear and BabyBear, widths 16 and 24, on int64
+tensors and numpy.
 
 Port of the array paths of `plonky3_tpu/hashes/poseidon2.py`
 (poseidon2/src/lib.rs:139: external initial rounds, internal rounds,
 external terminal rounds; external.rs:113 the MDS-light layer circ(2M4,
 M4, ...) with M4 = [[2,3,1,1],[1,2,3,1],[1,1,2,3],[3,1,1,2]];
-monty-31/src/poseidon2.rs:77-90 the internal layer J + Diag(V)).
+monty-31/src/poseidon2.rs:77-90 the internal layer J + Diag(V)). The
+s-box is x^3 over KoalaBear and x^7 over BabyBear (`S_BOX_DEGREE`).
 
 `permute` takes (..., width) int64 tensors in Montgomery form (the Merkle
 sponge and compressor, the kernels' plain versions); `permute_np` takes
@@ -27,22 +29,35 @@ import numpy as np
 import torch
 
 # Internal diagonals V as (numerator, log2 denominator): V_i = num / 2^den
-# mod P (koala-bear/src/poseidon2.rs:10-15). V[0] = -2.
-DIAGONALS_KOALABEAR = {
-    16: ((-2, 0), (1, 0), (2, 0), (1, 1), (3, 0), (4, 0), (-1, 1), (-3, 0),
-         (-4, 0), (1, 8), (1, 3), (1, 24), (-1, 8), (-1, 3), (-1, 4),
-         (-1, 24)),
-    24: ((-2, 0), (1, 0), (2, 0), (1, 1), (3, 0), (4, 0), (-1, 1), (-3, 0),
-         (-4, 0), (1, 8), (1, 2), (1, 3), (1, 4), (1, 5), (1, 6), (1, 24),
-         (-1, 8), (-1, 3), (-1, 4), (-1, 5), (-1, 6), (-1, 7), (-1, 9),
-         (-1, 24)),
+# mod P (koala-bear/src/poseidon2.rs:10-15, baby-bear/src/poseidon2.rs:
+# 10-15). V[0] = -2.
+DIAGONALS = {
+    ("KoalaBear", 16): (
+        (-2, 0), (1, 0), (2, 0), (1, 1), (3, 0), (4, 0), (-1, 1), (-3, 0),
+        (-4, 0), (1, 8), (1, 3), (1, 24), (-1, 8), (-1, 3), (-1, 4),
+        (-1, 24)),
+    ("KoalaBear", 24): (
+        (-2, 0), (1, 0), (2, 0), (1, 1), (3, 0), (4, 0), (-1, 1), (-3, 0),
+        (-4, 0), (1, 8), (1, 2), (1, 3), (1, 4), (1, 5), (1, 6), (1, 24),
+        (-1, 8), (-1, 3), (-1, 4), (-1, 5), (-1, 6), (-1, 7), (-1, 9),
+        (-1, 24)),
+    ("BabyBear", 16): (
+        (-2, 0), (1, 0), (2, 0), (1, 1), (3, 0), (4, 0), (-1, 1), (-3, 0),
+        (-4, 0), (1, 8), (1, 2), (1, 3), (1, 27), (-1, 8), (-1, 4),
+        (-1, 27)),
+    ("BabyBear", 24): (
+        (-2, 0), (1, 0), (2, 0), (1, 1), (3, 0), (4, 0), (-1, 1), (-3, 0),
+        (-4, 0), (1, 8), (1, 2), (1, 3), (1, 4), (1, 7), (1, 9), (1, 27),
+        (-1, 8), (-1, 2), (-1, 3), (-1, 4), (-1, 5), (-1, 6), (-1, 7),
+        (-1, 27)),
 }
-S_BOX_DEGREE = {"KoalaBear": 3}
+# Mersenne31's degree 5 comes with that field (the circle path).
+S_BOX_DEGREE = {"KoalaBear": 3, "BabyBear": 7}
 
 
 def diag_values_std(F, width: int) -> list:
     return [(num * pow(pow(2, den, F.P), F.P - 2, F.P)) % F.P
-            for num, den in DIAGONALS_KOALABEAR[width]]
+            for num, den in DIAGONALS[(F.name, width)]]
 
 
 def _apply_mat4(ops, x):
@@ -91,25 +106,32 @@ def _mds_light_std(x, P):
         x[..., k::4] = (y + y.sum(-1)[..., None]) % P
 
 
-def _sbox3_std(x, P):
-    return x * x % P * x % P
+def _sbox_std(x, P, d):
+    """x^d for d = 3 (x2·x) or 7 (x4·x3, x2 = x·x, x3 = x2·x, x4 = x2·x2:
+    four products, three deep)."""
+    x2 = x * x % P
+    x3 = x2 * x % P
+    if d == 3:
+        return x3
+    return x2 * x2 % P * x3 % P
 
 
-def _permute_std(x, c, P):
+def _permute_std(x, c, P, d=3):
     """The permutation of (..., width) standard-form int64 values in
-    [0, P), updating the buffer `x` in place where it can; `c` holds the
-    standard-form tables (`Poseidon2.std_tables`) as the same kind of
-    array. Returns the permuted states."""
+    [0, P) with the degree-d s-box (KoalaBear's 3 by default), updating
+    the buffer `x` in place where it can; `c` holds the standard-form
+    tables (`Poseidon2.std_tables`) as the same kind of array. Returns the
+    permuted states."""
     _mds_light_std(x, P)
     for rc in c["rc_ei"]:
-        x = _sbox3_std((x + rc) % P, P)
+        x = _sbox_std((x + rc) % P, P, d)
         _mds_light_std(x, P)
     for rc in c["rc_int"]:
-        x[..., 0] = _sbox3_std((x[..., 0] + rc) % P, P)
+        x[..., 0] = _sbox_std((x[..., 0] + rc) % P, P, d)
         total = x.sum(-1)  # < 24·P
         x = (x * c["diag"] + total[..., None]) % P
     for rc in c["rc_ef"]:
-        x = _sbox3_std((x + rc) % P, P)
+        x = _sbox_std((x + rc) % P, P, d)
         _mds_light_std(x, P)
     return x
 
@@ -124,8 +146,9 @@ class Poseidon2:
     rc_internal: tuple  # (partial rounds,) standard ints
 
     def __post_init__(self):
-        if self.d != 3:
-            raise NotImplementedError("only the degree-3 s-box is ported")
+        if self.d not in (3, 7):
+            raise NotImplementedError(f"the degree-{self.d} s-box is not "
+                                      f"ported (degrees 3 and 7 are)")
         object.__setattr__(self, "diag_std", diag_values_std(self.F,
                                                              self.width))
         # the standard-form tables as int64 numpy arrays
@@ -179,7 +202,11 @@ class Poseidon2:
         return F.add(st, tot[..., None, :]).reshape(x.shape)
 
     def sbox(self, x):
-        return self.F.mul(self.F.square(x), x)
+        """x^d on Montgomery tensors (as `_sbox_std`)."""
+        F = self.F
+        x2 = F.square(x)
+        x3 = F.mul(x2, x)
+        return x3 if self.d == 3 else F.mul(F.square(x2), x3)
 
     def internal_layer(self, s, diag):
         """out_i = Σ s + V_i·s_i (the s-box already applied to s_0)."""
@@ -189,26 +216,33 @@ class Poseidon2:
     def permute(self, states):
         """Batched permutation of (..., width) Montgomery int64 tensors."""
         F = self.F
-        x = _permute_std(F.from_monty_tensor(states),
-                         self.std_tables(states.device), F.P)
+        x = self.permute_std(F.from_monty_tensor(states),
+                             self.std_tables(states.device))
         return F.to_monty_tensor(x)
+
+    def permute_std(self, x, tables):
+        """`_permute_std` with this instance's field and degree: `x`, a
+        (..., width) buffer of standard-form values, `tables` its kind of
+        `std_tables`."""
+        return _permute_std(x, tables, self.F.P, self.d)
 
     def permute_np(self, states):
         """Batched permutation of (..., width) standard-form values (any
         integer numpy array) -> int64 standard form."""
         x = np.array(states, dtype=np.int64)
-        return _permute_std(x, self.tables_np, self.F.P)
+        return self.permute_std(x, self.tables_np)
 
 
 def default_poseidon2(F, width: int) -> Poseidon2:
-    """The default KoalaBear instances of widths 16 and 24
-    (koala-bear/src/poseidon2.rs:190)."""
+    """The default KoalaBear and BabyBear instances of widths 16 and 24
+    (koala-bear/src/poseidon2.rs:190, baby-bear/src/poseidon2.rs)."""
     from .constants import poseidon2_constants as consts
 
-    if F.name != "KoalaBear" or width not in DIAGONALS_KOALABEAR:
-        raise NotImplementedError("only KoalaBear widths 16 and 24 are "
-                                  "ported")
-    prefix = f"KOALABEAR_POSEIDON2_RC_{width}"
+    if (F.name, width) not in DIAGONALS:
+        raise NotImplementedError(
+            f"Poseidon2 over {F.name} at width {width} is not ported "
+            f"(KoalaBear and BabyBear, widths 16 and 24, are)")
+    prefix = f"{F.name.upper()}_POSEIDON2_RC_{width}"
     return Poseidon2(
         F=F, width=width, d=S_BOX_DEGREE[F.name],
         rc_external_initial=getattr(consts, f"{prefix}_EXTERNAL_INITIAL"),

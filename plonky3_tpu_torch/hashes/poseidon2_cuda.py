@@ -19,8 +19,13 @@ be some 300,000 launches one after another.
   ascending rounds. Replaces `device_duplex.py:146` `grind_field`.
 
 Both take and return int32 tensors of Montgomery-form words and a width-24
-`Poseidon2` whose tables they read. A CPU tensor takes the plain version
-(`Poseidon2.permute`); a CUDA tensor launches the kernel.
+`Poseidon2` whose tables they read: KoalaBear's (s-box degree 3, 23
+internal rounds) or BabyBear's (degree 7, 21 rounds), the kernels'
+instantiations `<23, 3>` and `<21, 7>` (`INSTANCES`); any other raises
+`ValueError`. A CPU tensor takes the plain version (`Poseidon2.permute`);
+a CUDA tensor launches the kernel. Each instantiation has its own launch
+counts: `poseidon2_duplex_chain` and `poseidon2_grind` for `<23, 3>`, the
+same names with `_babybear` for `<21, 7>`.
 """
 
 from __future__ import annotations
@@ -29,17 +34,31 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .poseidon2 import _permute_std
 
 WIDTH = 24
 RATE = 16
 GRIND_MAX_WINDOW = 1 << 17
+# the kernels' instantiations: (s-box degree, internal rounds) -> the suffix
+# of their launch counts' names
+INSTANCES = {(3, 23): "", (7, 21): "_babybear"}
 
 
-def _check_perm(perm):
-    if perm.width != WIDTH:
-        raise ValueError(f"the duplex kernels take a width-{WIDTH} "
-                         f"permutation, not {perm.width}")
+def instance(perm):
+    """(degree, rounds) of a width-24 permutation the kernels take; raises
+    ValueError for any other."""
+    key = (perm.d, len(perm.rc_internal))
+    if perm.width != WIDTH or key not in INSTANCES:
+        raise ValueError(
+            f"the duplex kernels take a width-{WIDTH} permutation of s-box "
+            f"degree and internal rounds in {sorted(INSTANCES)}, not width "
+            f"{perm.width}, {key}")
+    return key
+
+
+def launch_name(kernel, perm):
+    """The name of the launch count of `kernel` ("poseidon2_duplex_chain"
+    or "poseidon2_grind") for `perm`'s instantiation."""
+    return kernel + INSTANCES[instance(perm)]
 
 
 def _blocks(n):
@@ -88,7 +107,7 @@ def poseidon2_grind_plain(perm, base, lane, pow_bits):
                             dtype=torch.int64, device=base.device)
         states = std.expand(cand.shape[0], WIDTH).clone()
         states[:, lane] = cand
-        out = _permute_std(states, tables, F.P)
+        out = perm.permute_std(states, tables)
         hit = (out[:, RATE - 1] & mask) == 0
         if bool(hit.any()):
             return cand[hit.to(torch.int8).argmax()].reshape(1).to(
@@ -97,9 +116,10 @@ def poseidon2_grind_plain(perm, base, lane, pow_bits):
 
 
 def internal_tables(perm):
-    """The duplex chain's internal-round tables in standard form, (23, 24)
-    and (24,) int64: row k of the first holds d_i^k for lanes i >= 1 (0
-    in lane 0), the second c_k = sum of row k for k < 23 and 0 for k = 23.
+    """The duplex chain's internal-round tables in standard form, (R, 24)
+    and (24,) int64 for R internal rounds: row k of the first holds d_i^k
+    for lanes i >= 1 (0 in lane 0), the second c_k = sum of row k for
+    k < R and 0 from k = R on.
     For i >= 1 an internal round maps x_i to S + d_i·x_i, so
     Q_k = sum_{i>=1} d_i^k·x_i becomes c_k·S + Q_{k+1}."""
     P, rounds = perm.F.P, len(perm.rc_internal)
@@ -113,8 +133,8 @@ def internal_tables(perm):
 def kernel_table(perm, device):
     """The kernels' constant table on `device`: Montgomery-form u32
     words, the external initial round constants (4 × 24), the internal
-    ones (23), the external final ones (4 × 24), the internal diagonal
-    (24); then the chain's `internal_tables` (23 × 24, 24); then, for the
+    ones (R), the external final ones (4 × 24), the internal diagonal
+    (24); then the chain's `internal_tables` (R × 24, 24); then, for the
     grind's Shoup products, the diagonal in standard form d (24) and
     floor(d·2^32 / p) (24). The grind reads the round constants and the
     last part."""
@@ -143,7 +163,7 @@ def poseidon2_duplex_chain(perm, state, words):
     """Duplex absorb: (24,) int32 Montgomery state and (n,) int32
     Montgomery words, n >= 0 -> the (24,) state after them (see the module
     docstring). The input state is not changed."""
-    _check_perm(perm)
+    degree, rounds = instance(perm)
     if state.shape != (WIDTH,) or words.dim() != 1:
         raise ValueError(f"poseidon2_duplex_chain: state {tuple(state.shape)}"
                          f", words {tuple(words.shape)}")
@@ -158,9 +178,9 @@ def poseidon2_duplex_chain(perm, state, words):
     p, mu, r2 = _field_args(perm.F)
     kernels.check(kernels.lib("poseidon2").poseidon2_duplex_chain(
         state.data_ptr(), words.data_ptr(), words.shape[0], out.data_ptr(),
-        kernel_table(perm, state.device).data_ptr(), p, mu, r2,
-        kernels.stream_of(state)), "poseidon2_duplex_chain")
-    kernels.LAUNCHES["poseidon2_duplex_chain"] += 1
+        kernel_table(perm, state.device).data_ptr(), p, mu, r2, rounds,
+        degree, kernels.stream_of(state)), "poseidon2_duplex_chain")
+    kernels.LAUNCHES[launch_name("poseidon2_duplex_chain", perm)] += 1
     return out
 
 
@@ -169,7 +189,7 @@ def poseidon2_grind(perm, base, lane, pow_bits):
     the witness's duplexing (the witness goes to lane `lane`) -> the
     smallest witness of `poseidon2_grind_plain`, as a (1,) int32 tensor on
     the device of `base`; nothing is copied to the host."""
-    _check_perm(perm)
+    degree, rounds = instance(perm)
     if base.shape != (WIDTH,) or not 0 <= lane < RATE or not (
             1 <= pow_bits <= 30):
         raise ValueError(f"poseidon2_grind: state {tuple(base.shape)}, lane "
@@ -181,7 +201,7 @@ def poseidon2_grind(perm, base, lane, pow_bits):
     p, mu, r2 = _field_args(perm.F)
     kernels.check(kernels.lib("poseidon2").poseidon2_grind(
         base.data_ptr(), lane, pow_bits,
-        kernel_table(perm, base.device).data_ptr(), p, mu, r2,
-        best.data_ptr(), kernels.stream_of(base)), "poseidon2_grind")
-    kernels.LAUNCHES["poseidon2_grind"] += 1
+        kernel_table(perm, base.device).data_ptr(), p, mu, r2, rounds,
+        degree, best.data_ptr(), kernels.stream_of(base)), "poseidon2_grind")
+    kernels.LAUNCHES[launch_name("poseidon2_grind", perm)] += 1
     return best

@@ -10,7 +10,7 @@ truncated). Digests are field elements (`digest_is_field`): Montgomery
 words on the device, standard-form ints in the proof.
 
 The device paths hash every row of a level at once, as (h, width) int64
-states in standard form (`poseidon2._permute_std`); they take and return
+states in standard form (`Poseidon2.permute_std`); they take and return
 Montgomery-form int64 tensors. The `_np` paths take and return
 Montgomery-form numpy words, as the reference's do, and serve the
 verifier. Plain PyTorch: the JAX package computes these in jnp, not in a
@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .poseidon2 import Poseidon2, _permute_std
+from .poseidon2 import Poseidon2
 
 
 def _rows(mats):
@@ -54,7 +54,7 @@ class PaddingFreeSponge:
         for start in range(0, flat.shape[1], self.rate):
             block = flat[:, start:start + self.rate]
             state[:, :block.shape[1]] = to_std(block)  # overwrite mode
-            state = _permute_std(state, tables, self.F.P)
+            state = self.perm.permute_std(state, tables)
         return state[:, :self.out]
 
     def hash_rows_device(self, mats):
@@ -104,7 +104,7 @@ class TruncatedPermutation:
         state = np.zeros((left.shape[0], self.perm.width), np.int64)
         state[:, :self.chunk] = F.from_monty_np(left)
         state[:, self.chunk:2 * self.chunk] = F.from_monty_np(right)
-        out = _permute_std(state, self.perm.tables_np, F.P)
+        out = self.perm.permute_std(state, self.perm.tables_np)
         return F.to_monty_np(out[:, :self.chunk])
 
     @property

@@ -28,7 +28,8 @@ ARCH = "arch=compute_90a,code=sm_90a"
 LAUNCHES = {"ntt_k1": 0, "ntt_k2": 0, "keccak_sponge": 0,
             "keccak_compress": 0, "keccak_ladder": 0, "keccak256_chain": 0,
             "keccak_grind": 0, "poseidon2_duplex_chain": 0,
-            "poseidon2_grind": 0}
+            "poseidon2_grind": 0, "poseidon2_duplex_chain_babybear": 0,
+            "poseidon2_grind_babybear": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,8 +49,9 @@ _SIGNATURES = {
         "keccak_grind": [_P, _L, _I, _U, _P, _P],
     },
     "poseidon2": {
-        "poseidon2_duplex_chain": [_P, _P, _L, _P, _P, _U, _U, _U, _P],
-        "poseidon2_grind": [_P, _I, _I, _P, _U, _U, _U, _P, _P],
+        "poseidon2_duplex_chain": [_P, _P, _L, _P, _P, _U, _U, _U, _I, _I,
+                                   _P],
+        "poseidon2_grind": [_P, _I, _I, _P, _U, _U, _U, _I, _I, _P, _P],
     },
 }
 

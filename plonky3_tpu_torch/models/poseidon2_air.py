@@ -1,21 +1,26 @@
-"""Vectorized Poseidon2 AIR over KoalaBear: the benchmark workload.
+"""Vectorized Poseidon2 AIR: the benchmark workload.
 
-Port of `plonky3_tpu/models/poseidon2_air.py` for the KoalaBear s-box
-(degree 3, no s-box registers): V permutations per row, each a block of
-columns
+Port of `plonky3_tpu/models/poseidon2_air.py`: V permutations per row,
+each a block of columns (REG s-box registers per s-box, `_sbox_registers`)
 
     inputs[W]
-    4 × post[W]        beginning full rounds
-    PR × post_sbox     partial rounds
-    4 × post[W]        ending full rounds
+    4 × (sbox[W·REG], post[W])     beginning full rounds
+    PR × (sbox[REG], post_sbox)    partial rounds
+    4 × (sbox[W·REG], post[W])     ending full rounds
+
+KoalaBear's s-box x^3 has no register (REG 0). BabyBear's x^7 has one
+(the reference's (7, 1) case, air.rs:305-341): the register holds x^3,
+constrained by reg - x·x·x, and the s-box's value is reg·reg·x, so every
+constraint keeps degree 3. Mersenne31's degree 5 waits for that field.
 
 `eval` states the constraints over the builder's symbolic values (the
 verifier runs it at zeta); `fold_constraints_device` evaluates the same
 constraints over the whole quotient domain for the prover. Both take them
-in the reference's order: per round, the post columns w-major and V-minor
-(a partial round contributes V), so each gets the same alpha power. The
-fold is exact modular arithmetic; each constraint·alpha product is
-reduced mod P before the sums.
+in the reference's order: per round, the register constraints and then
+the post columns', each w-major and V-minor (a partial round contributes
+V of each), so each gets the same alpha power. The fold is exact modular
+arithmetic; each constraint·alpha product is reduced mod P before the
+sums.
 """
 
 from __future__ import annotations
@@ -30,6 +35,14 @@ from ..hashes.poseidon2 import Poseidon2, default_poseidon2, mds_light
 
 HALF_FULL_ROUNDS = 4
 _FOLD_CHUNK = 1 << 15  # rows per fold step (bounds the temporaries)
+
+
+def _sbox_registers(d: int) -> int:
+    """Committed registers per s-box: none for x^3, one (x^3) for x^7."""
+    if d not in (3, 7):
+        raise NotImplementedError(f"the degree-{d} s-box is not ported "
+                                  f"(Mersenne31's degree 5 comes with it)")
+    return {3: 0, 7: 1}[d]
 
 
 class _SymOps:
@@ -50,13 +63,14 @@ class Poseidon2VectorAir(BaseAir):
                  perm: Poseidon2 | None = None):
         self.field = field
         self.perm = perm or default_poseidon2(field, state_width)
-        if self.perm.d != 3:
-            raise NotImplementedError("only the degree-3 s-box is ported")
+        self.d = self.perm.d
+        self.REG = _sbox_registers(self.d)
         self.W = state_width
         self.V = vector_len
         self.PR = len(self.perm.rc_internal)
-        self.cols_per_perm = (self.W + 2 * HALF_FULL_ROUNDS * self.W
-                              + self.PR)
+        W, REG = self.W, self.REG
+        self.cols_per_perm = (W + 2 * HALF_FULL_ROUNDS * (W * REG + W)
+                              + self.PR * (REG + 1))
         self.width = vector_len * self.cols_per_perm
 
     def max_constraint_degree(self):
@@ -64,20 +78,25 @@ class Poseidon2VectorAir(BaseAir):
 
     # -- column offsets within one permutation's block --------------------
     def _off_full(self, section: int, r: int):
-        """The first post column of full round r of section 0 (beginning)
+        """(sbox_base, post_base) of full round r of section 0 (beginning)
         or 1 (ending)."""
-        base = self.W + r * self.W
+        W, REG = self.W, self.REG
+        block = W * REG + W
+        base = W + r * block
         if section == 1:
-            base += HALF_FULL_ROUNDS * self.W + self.PR
-        return base
+            base += HALF_FULL_ROUNDS * block + self.PR * (REG + 1)
+        return base, base + W * REG
 
     def _off_partial(self, r: int):
-        """The post_sbox column of partial round r."""
-        return self.W + HALF_FULL_ROUNDS * self.W + r
+        """(sbox_base, post_sbox) of partial round r."""
+        W, REG = self.W, self.REG
+        base = W + HALF_FULL_ROUNDS * (W * REG + W) + r * (REG + 1)
+        return base, base + REG
 
     def eval(self, b):
         """The constraints, a block of V (one per permutation) for each
-        post column: computed round output minus the committed one."""
+        register (reg - x^3) and each post column (computed round output
+        minus the committed one)."""
         V, W, C = self.V, self.W, self.cols_per_perm
         cols = b.main.local
         ops = _SymOps()
@@ -85,8 +104,12 @@ class Poseidon2VectorAir(BaseAir):
         def lane(c):
             return stack_syms([cols[v * C + c] for v in range(V)])
 
-        def sbox(x):  # degree 3, no registers
-            return x * x * x
+        def sbox(x, reg_col):
+            if not self.REG:  # degree 3, no register
+                return x * x * x
+            x3 = lane(reg_col)  # degree 7: the register holds x^3
+            b.assert_eq_block(x3, x * x * x, V)
+            return x3 * x3 * x
 
         state = mds_light(ops, [lane(w) for w in range(W)])
         for section, rcs in ((0, self.perm.rc_external_initial),
@@ -94,8 +117,10 @@ class Poseidon2VectorAir(BaseAir):
                              (1, self.perm.rc_external_final)):
             for r, rc in enumerate(rcs):
                 if section is None:  # partial round
-                    post = lane(self._off_partial(r))
-                    b.assert_eq_block(sbox(state[0] + int(rc)), post, V)
+                    sbox_base, post_c = self._off_partial(r)
+                    post = lane(post_c)
+                    b.assert_eq_block(sbox(state[0] + int(rc), sbox_base),
+                                      post, V)
                     state[0] = post
                     total = state[0]
                     for s in state[1:]:
@@ -103,9 +128,10 @@ class Poseidon2VectorAir(BaseAir):
                     state = [total + state[i] * int(self.perm.diag_std[i])
                              for i in range(W)]
                 else:  # full round
-                    post_base = self._off_full(section, r)
-                    state = mds_light(ops, [sbox(state[w] + int(rc[w]))
-                                            for w in range(W)])
+                    sbox_base, post_base = self._off_full(section, r)
+                    state = mds_light(ops, [
+                        sbox(state[w] + int(rc[w]), sbox_base + w * self.REG)
+                        for w in range(W)])
                     for w in range(W):
                         post = lane(post_base + w)
                         b.assert_eq_block(state[w], post, V)
@@ -114,14 +140,18 @@ class Poseidon2VectorAir(BaseAir):
     def fold_constraints_device(self, F, E, local, nxt, sels, publics_m,
                                 alpha_pows):
         """(Nq, width) rows -> (Nq, D) alpha-folded constraints:
-        Σ_k alpha_pows[k]·C_k with C_k = computed - committed post value.
-        The constraints read no next row, so `nxt` is unused."""
+        Σ_k alpha_pows[k]·C_k with C_k = reg - x^3 for a register and
+        computed - committed post value for a post column. The constraints
+        read no next row, so `nxt` is unused."""
         perm, P = self.perm, F.P
-        V, W, C, PR = self.V, self.W, self.cols_per_perm, self.PR
+        V, W, C, PR, REG = self.V, self.W, self.cols_per_perm, self.PR, \
+            self.REG
         c = perm.consts(local.device)
-        per_full = V * W
+        block = W * REG + W
+        per_full = V * W * (REG + 1)
+        per_part = V * (REG + 1)
         k_ei = HALF_FULL_ROUNDS * per_full
-        k_ef = k_ei + PR * V
+        k_ef = k_ei + PR * per_part
         out = []
         for r0 in range(0, local.shape[0], _FOLD_CHUNK):
             xc = local[r0:r0 + _FOLD_CHUNK]
@@ -134,26 +164,43 @@ class Poseidon2VectorAir(BaseAir):
                 a = alpha_pows[k0:k0 + cons.shape[1]]
                 acc += (cons[:, :, None] * a[None] % P).sum(dim=1)
 
+            def sbox(s, regs):
+                """(the s-box's value, the register constraints or None)."""
+                if not REG:
+                    return perm.sbox(s), None
+                return (F.mul(F.square(regs), s),
+                        F.sub(regs, F.mul(F.square(s), s)))
+
             def full_rounds(state, rcs, col0, k0):
                 for r, rc in enumerate(rcs):
-                    post = xc[:, :, col0 + r * W:col0 + (r + 1) * W]
-                    sm = perm._mds_light_arr(perm.sbox(F.add(state, rc)))
-                    cons = F.sub(sm, post).transpose(1, 2).reshape(rows, -1)
-                    fold(cons, k0 + r * per_full)
+                    base, k = col0 + r * block, k0 + r * per_full
+                    regs = xc[:, :, base:base + W] if REG else None
+                    post = xc[:, :, base + W * REG:base + block]
+                    val, reg_cons = sbox(F.add(state, rc), regs)
+                    if REG:
+                        fold(reg_cons.transpose(1, 2).reshape(rows, -1), k)
+                        k += V * W
+                    cons = F.sub(perm._mds_light_arr(val), post)
+                    fold(cons.transpose(1, 2).reshape(rows, -1), k)
                     state = post
                 return state
 
             state = perm._mds_light_arr(xc[:, :, :W])
             state = full_rounds(state, c["rc_ei"], W, 0)
-            p0 = W + HALF_FULL_ROUNDS * W
+            p0 = W + HALF_FULL_ROUNDS * block
             for r in range(PR):
-                post = xc[:, :, p0 + r]
-                s0 = perm.sbox(F.add(state[..., 0], c["rc_int"][r]))
-                fold(F.sub(s0, post), k_ei + r * V)
+                base, k = p0 + r * (REG + 1), k_ei + r * per_part
+                post = xc[:, :, base + REG]
+                val, reg_cons = sbox(F.add(state[..., 0], c["rc_int"][r]),
+                                     xc[:, :, base] if REG else None)
+                if REG:
+                    fold(reg_cons, k)
+                    k += V
+                fold(F.sub(val, post), k)
                 state = perm.internal_layer(
                     torch.cat([post[..., None], state[..., 1:]], dim=-1),
                     c["diag"])
-            full_rounds(state, c["rc_ef"], p0 + PR, k_ef)
+            full_rounds(state, c["rc_ef"], p0 + PR * (REG + 1), k_ef)
             out.append(acc % P * F.RINV % P)
         return torch.cat(out, dim=0)
 
@@ -171,18 +218,28 @@ def generate_vectorized_trace(air: Poseidon2VectorAir, inputs, device=None):
         raise ValueError(f"{n} permutations do not fill rows of {air.V}")
     perm, F = air.perm, air.field
     c = perm.consts(dev)
+
+    def sbox(s):
+        """(the s-box's value, its register columns: x^3, or none)."""
+        if not air.REG:
+            return perm.sbox(s), []
+        x3 = F.mul(F.square(s), s)
+        return F.mul(F.square(x3), s), [x3]
+
     cols = [x_in]
     x = perm._mds_light_arr(x_in)
     for rc in c["rc_ei"]:
-        x = perm._mds_light_arr(perm.sbox(F.add(x, rc)))
-        cols.append(x)
+        val, regs = sbox(F.add(x, rc))
+        x = perm._mds_light_arr(val)
+        cols += regs + [x]
     for rc in c["rc_int"]:
-        s0 = perm.sbox(F.add(x[..., 0], rc))
+        s0, regs = sbox(F.add(x[..., 0], rc))
         x = perm.internal_layer(torch.cat([s0[..., None], x[..., 1:]],
                                           dim=-1), c["diag"])
-        cols.append(s0[..., None])
+        cols += [r[..., None] for r in regs] + [s0[..., None]]
     for rc in c["rc_ef"]:
-        x = perm._mds_light_arr(perm.sbox(F.add(x, rc)))
-        cols.append(x)
+        val, regs = sbox(F.add(x, rc))
+        x = perm._mds_light_arr(val)
+        cols += regs + [x]
     per_perm = torch.cat(cols, dim=1)
     return per_perm.reshape(n // air.V, air.V * air.cols_per_perm), x

@@ -427,3 +427,78 @@ def test_cuda_blocked_fold_equals_cpu(cuda, name):
             got[dev.type, rows] = q.cpu()
     want = got["cpu", qd.size]
     assert all(torch.equal(q, want) for q in got.values())
+
+
+# BabyBear: the duplex kernels' <21, 7> instantiation (21 internal rounds,
+# s-box x^7); 19,104 words is the alpha2 absorb of Poseidon2VectorAir
+# (BabyBear, 16, 8), 2 · 2,384 · 4 + 2 · 4 · 4.
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 32, 19104])
+def test_babybear_duplex_chain_matches_plain(cuda, n):
+    from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.fields import BabyBear
+    from plonky3_tpu_torch.hashes import poseidon2_cuda as pc
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+
+    perm = default_poseidon2(BabyBear, 24)
+    rng = np.random.default_rng(n)
+    state = _words(rng, (24,), BabyBear.P, cuda)
+    words = _words(rng, (n,), BabyBear.P, cuda)
+    before = dict(kernels.LAUNCHES)
+    got = pc.poseidon2_duplex_chain(perm, state, words)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["poseidon2_duplex_chain_babybear"] - before[
+        "poseidon2_duplex_chain_babybear"] == 1
+    assert kernels.LAUNCHES["poseidon2_duplex_chain"] == before[
+        "poseidon2_duplex_chain"]
+    assert torch.equal(got, pc.poseidon2_duplex_chain_plain(perm, state,
+                                                            words))
+
+
+@pytest.mark.parametrize("lane,pow_bits", [(0, 1), (5, 2), (15, 12),
+                                           (10, 16), (10, 17)])
+def test_babybear_grind_matches_plain(cuda, lane, pow_bits):
+    from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.fields import BabyBear
+    from plonky3_tpu_torch.hashes import poseidon2_cuda as pc
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+
+    perm = default_poseidon2(BabyBear, 24)
+    base = _words(np.random.default_rng(lane + 100), (24,), BabyBear.P, cuda)
+    before = kernels.LAUNCHES["poseidon2_grind_babybear"]
+    got = pc.poseidon2_grind(perm, base, lane, pow_bits)
+    assert kernels.LAUNCHES["poseidon2_grind_babybear"] - before == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, pc.poseidon2_grind_plain(perm, base, lane,
+                                                     pow_bits))
+
+
+@pytest.mark.parametrize("kind", ["keccak", "poseidon2"])
+def test_babybear_commit_and_proof_equal_cpu(cuda, kind):
+    """Over BabyBear (Poseidon2VectorAir at V = 8, 2,384 columns, 16 rows):
+    the trace commit on CUDA equals the CPU's, and both provers on CUDA
+    give the CPU's proof."""
+    from plonky3_tpu_torch.fields import BabyBear, BabyBearExt4
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.models.poseidon2_air import (
+        Poseidon2VectorAir,
+        generate_vectorized_trace,
+    )
+    from plonky3_tpu_torch.stark import fast_prover
+    from plonky3_tpu_torch.stark.prover import prove
+
+    make_config = _configs()[kind][0]
+    params = FriParameters(log_blowup=1, log_final_poly_len=0,
+                           max_log_arity=3, num_queries=10,
+                           commit_proof_of_work_bits=0,
+                           query_proof_of_work_bits=8)
+    air = Poseidon2VectorAir(BabyBear, 16, vector_len=8)
+    inputs = BabyBear.rand_np(np.random.default_rng(4), (128, 16))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        trace, _ = generate_vectorized_trace(air, inputs, device=dev)
+        cfg = make_config(BabyBear, BabyBearExt4, params, device=dev)
+        out[dev.type + "_commit"] = cfg.pcs.mmcs.commit([trace]).commitment
+        out[dev.type] = fast_prover._prove_device_fs(cfg, air, trace, [])
+        out[dev.type + "_prove"] = prove(cfg, air, trace, [])
+    assert out["cuda_commit"] == out["cpu_commit"]
+    assert out["cuda"] == out["cpu"] == out["cpu_prove"] == out["cuda_prove"]
