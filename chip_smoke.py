@@ -40,7 +40,10 @@ Phases, each printed as one JSON line:
            of 16 staged states at 16 bits, each witness checked and each
            state timed by CUDA events and bounded (`sweep_ms`,
            `sweep_share`). K1, K2 and the sponge also at 2^18 x 2,384
-           with BabyBear's words and tables (the `*_babybear` keys).
+           with BabyBear's words and tables (the `*_babybear` keys), and
+           at 2^18 x 7,728 (Sha256Air's width, the `*_sha256_air` keys:
+           the plain NTT 2,048 columns at a time, the plain sponge on the
+           first 2^14 rows).
            Kernel times are device time under
            torch.profiler (`ms`), CUDA events around the call beside it
            (`wall_ms`);
@@ -66,6 +69,17 @@ Phases, each printed as one JSON line:
            s-box x^7 with registers) at 2^8 rows, built by the CLI's
            `build`, under both configs: both provers on CUDA equal both
            on the CPU, every proof verified;
+  sha256_air_small  Sha256Air (7,728 columns) at 2^8 rows under both
+           configs: both provers on CUDA equal both on the CPU, every
+           proof verified, a changed opened trace value rejected;
+  poseidon1_small  Poseidon1VectorAir(KoalaBear, 16, 8) (1,312 columns,
+           its own fold) at 2^8 rows under both configs, CUDA against the
+           CPU, every proof verified;
+  m15_small a JoinedAir of two named FibonacciAirs, both provers on CUDA
+           equal both on the CPU; batch_inv on 2^20 KoalaBear and
+           BabyBear words with zeros against the Fermat inverse on the
+           card; the Ext8 fields' products and inverses, CUDA against the
+           CPU;
   full     the benchmark workload: 2^20 Poseidon2 permutations, a
            2^17 x 1312 trace, keccak config, FriParameters
            .new_benchmark_high_arity(); two proves, the second timed, with
@@ -134,7 +148,20 @@ Phases, each printed as one JSON line:
            the babybear phase's proof size and the soundness line;
   babybear_poseidon2  the same workload under the Poseidon2 config: the
            duplex kernels' <21, 7> (and no keccak kernel, no <23, 3>),
-           the same checks and probes, the chain call by call.
+           the same checks and probes, the chain call by call;
+  poseidon1 Poseidon1VectorAir(KoalaBear, 16, 8) at full size: 2^20
+           permutations (inputs as the main path's), a 2^17 x 1,312
+           trace, 1,184 constraints, keccak config, through the same
+           checks as keccak_air with the warm fast prove and one prove()
+           (probes: a changed opened trace value, commit-phase sibling
+           digest, the AIR with one more constraint);
+  poseidon1_poseidon2  the same under the Poseidon2 config (the duplex
+           kernels' <23, 3>; probes: trace value, trace root, sibling
+           digest);
+  sha256_air Sha256Air at full width: 131,072 compressions, a 2^17 x
+           7,728 trace built on the card, keccak config, the generic
+           quotient folded by row blocks, the checks and probes of
+           blake3_air with the warm fast prove and one prove().
 Every profile checks that it recorded each of the port's kernels as many
 times as the prove launched it, and profiles again where it did not.
 Before the last line: one JSON object listing every kernel. The last line
@@ -758,8 +785,8 @@ def _rand_words(torch, rng, shape, P):
 
 def _rand_words_device(torch, seed, shape, P):
     """Words below P drawn on the card by a seeded torch generator: the
-    inputs at the Blake3 width, which numpy would take tens of seconds
-    and tens of GB of host memory to draw."""
+    inputs at the wide widths, which numpy would take tens of seconds and
+    tens of GB of host memory to draw."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     return torch.randint(0, P, shape, generator=g, device="cuda",
                          dtype=torch.int32)
@@ -787,13 +814,18 @@ def compare(what, got, want):
 KECCAK_AIR_WIDTH = 2633
 BLAKE3_AIR_WIDTH = 9168
 BABYBEAR_WIDTH = 2384
+# Sha256Air's (models/sha256_air.py NUM_SHA256_COLS)
+SHA256_AIR_WIDTH = 7728
 AIR_WIDTHS = {KECCAK_AIR_WIDTH: "keccak_air", BLAKE3_AIR_WIDTH: "blake3_air",
-              BABYBEAR_WIDTH: "babybear"}
-# columns of one plain NTT at the Blake3 width (the whole 2^18 x 9,168
-# int64 transform and its temporaries do not fit the card at once)
+              BABYBEAR_WIDTH: "babybear", SHA256_AIR_WIDTH: "sha256_air"}
+# the widths whose inputs are drawn on the card and whose plain versions
+# run on a part of the kernel's work (PLAIN_NTT_COLUMNS, PLAIN_SPONGE_ROWS)
+WIDE_WIDTHS = (BLAKE3_AIR_WIDTH, SHA256_AIR_WIDTH)
+# columns of one plain NTT at a wide width (the whole 2^18 x 9,168 int64
+# transform and its temporaries do not fit the card at once)
 PLAIN_NTT_COLUMNS = 2048
-# rows of the plain leaf sponge at the Blake3 width (2^16 rows took 22.7 s
-# on an H100 80GB HBM3 at a 700 W power limit)
+# rows of the plain leaf sponge at a wide width (2^16 rows of 9,168
+# columns took 22.7 s on an H100 80GB HBM3 at a 700 W power limit)
 PLAIN_SPONGE_ROWS = 1 << 14
 
 
@@ -842,11 +874,11 @@ def phase_kernels(torch, np, card):
 
     # NTT: (log_n, w, inverse, zero_top); the first two and the ninth
     # and tenth are the main path's shapes (trace iDFT and LDE,
-    # quotient-chunk iDFT and LDE), the third to eighth the keccak-AIR,
-    # Blake3-AIR and BabyBear paths' trace iDFT and LDE (at the Blake3
-    # width the plain version runs PLAIN_NTT_COLUMNS columns at a time;
-    # at the BabyBear width over BabyBear's tables); the last three go
-    # through more than one level of the plan.
+    # quotient-chunk iDFT and LDE), the third to tenth the keccak-AIR,
+    # Blake3-AIR, BabyBear and Sha256-AIR paths' trace iDFT and LDE (at
+    # the wide widths the plain version runs PLAIN_NTT_COLUMNS columns at
+    # a time; at the BabyBear width over BabyBear's tables); the last
+    # three go through more than one level of the plan.
     ntt_cases = [(17, 1312, True, False), (18, 1312, False, True),
                  (17, KECCAK_AIR_WIDTH, True, False),
                  (18, KECCAK_AIR_WIDTH, False, True),
@@ -854,6 +886,8 @@ def phase_kernels(torch, np, card):
                  (18, BLAKE3_AIR_WIDTH, False, True),
                  (17, BABYBEAR_WIDTH, True, False),
                  (18, BABYBEAR_WIDTH, False, True),
+                 (17, SHA256_AIR_WIDTH, True, False),
+                 (18, SHA256_AIR_WIDTH, False, True),
                  (17, 4, True, False), (18, 4, False, True),
                  (1, 5, False, False), (1, 5, True, True),
                  (6, 5, False, False), (6, 5, True, False),
@@ -865,7 +899,7 @@ def phase_kernels(torch, np, card):
         Fw = field_at(w)
         rows = (1 << log_n) >> 1 if zero_top else 1 << log_n
         x = (_rand_words_device(torch, log_n, (rows, w), Fw.P)
-             if w == BLAKE3_AIR_WIDTH else
+             if w in WIDE_WIDTHS else
              _rand_words(torch, rng, (rows, w), Fw.P))
         before = dict(kernels.LAUNCHES)
         got = nc.dif_fused(Fw, x, log_n, inverse, zero_top)
@@ -875,7 +909,7 @@ def phase_kernels(torch, np, card):
         def plain_ntt(part):
             return nc.dif_fused_plain(Fw, part, log_n, inverse, zero_top)
 
-        if w == BLAKE3_AIR_WIDTH:
+        if w in WIDE_WIDTHS:
             err, plain = plain_by_columns(torch, plain_ntt, x, got,
                                           f"ntt {log_n} {w}")
         elif w in AIR_WIDTHS:  # the plain run compared is the one timed
@@ -893,7 +927,7 @@ def phase_kernels(torch, np, card):
         rec = {"log_n": log_n, "w": w, "field": Fw.name, "inverse": inverse,
                "zero_top": zero_top, "k1_launches": ran["ntt_k1"],
                "k2_launches": ran["ntt_k2"], "max_abs_err": err}
-        if w == BLAKE3_AIR_WIDTH:
+        if w in WIDE_WIDTHS:
             rec["plain_columns"] = PLAIN_NTT_COLUMNS
         if log_n in (17, 18):
             n = 1 << log_n
@@ -941,22 +975,22 @@ def phase_kernels(torch, np, card):
         emit({"phase": "kernels", "kernel": "ntt", **rec})
         del x, got
 
-    # the leaf sponge; at the Blake3 width the kernel runs over all 2^18
-    # rows and its first PLAIN_SPONGE_ROWS rows are held against the plain
+    # the leaf sponge; at a wide width the kernel runs over all 2^18 rows
+    # and its first PLAIN_SPONGE_ROWS rows are held against the plain
     # version (a row's digest reads that row alone); the plain run
     # compared is the one timed
     src = "plonky3_tpu_torch/csrc/keccak.cu"
     for h, w in [(1 << 18, 1312), (1 << 18, KECCAK_AIR_WIDTH),
                  (1 << 18, BLAKE3_AIR_WIDTH), (1 << 18, BABYBEAR_WIDTH),
-                 (1 << 18, 8), (1 << 18, 32), (1, 3),
-                 (5, 35), (300, 34), (7, 1)]:
+                 (1 << 18, SHA256_AIR_WIDTH), (1 << 18, 8), (1 << 18, 32),
+                 (1, 3), (5, 35), (300, 34), (7, 1)]:
         P = field_at(w).P
         flat = (_rand_words_device(torch, w, (h, w), P)
-                if w == BLAKE3_AIR_WIDTH else
+                if w in WIDE_WIDTHS else
                 _rand_words(torch, rng, (h, w), P))
         got = kc.keccak_sponge_rows(flat)
         rec = {"h": h, "w": w}
-        if w == BLAKE3_AIR_WIDTH:
+        if w in WIDE_WIDTHS:
             rows = flat[:PLAIN_SPONGE_ROWS]
             want, plain = once_ms(torch,
                                   lambda: kc.keccak_sponge_rows_plain(rows))
@@ -1366,11 +1400,13 @@ def phase_small(torch, np):
 
 def _air_workload(np, name, device, log_n=None, perms=None):
     """(air, trace, public values) of FibonacciAir at 2^log_n rows, of
-    Blake3Air over 2^log_n compressions or of KeccakAir over `perms`
-    permutations, the inputs from np.random.default_rng(1) as the
-    reference CLI makes them (plonky3_tpu/cli.py:125-156)."""
+    Blake3Air or Sha256Air over 2^log_n compressions or of KeccakAir over
+    `perms` permutations, the inputs from np.random.default_rng(1) as the
+    reference CLI makes them (plonky3_tpu/cli.py:125-156; Sha256Air's as
+    Blake3Air's: 16 block words and 8 state words a row)."""
     from plonky3_tpu_torch.fields import KoalaBear as F
-    from plonky3_tpu_torch.models import blake3_air, fibonacci, keccak_air
+    from plonky3_tpu_torch.models import (blake3_air, fibonacci, keccak_air,
+                                          sha256_air)
 
     if name == "fibonacci":
         trace, publics = fibonacci.generate_fibonacci_trace(F, log_n,
@@ -1382,6 +1418,13 @@ def _air_workload(np, name, device, log_n=None, perms=None):
             dtype=np.uint64).astype(np.uint32)
         return (blake3_air.Blake3Air(F),
                 blake3_air.generate_blake3_trace(F, inputs, device=device),
+                [])
+    if name == "sha256":
+        inputs = np.random.default_rng(1).integers(
+            0, 1 << 32, size=(1 << log_n, 24),
+            dtype=np.uint64).astype(np.uint32)
+        return (sha256_air.Sha256Air(F),
+                sha256_air.generate_sha256_trace(F, inputs, device=device),
                 [])
     inputs = np.random.default_rng(1).integers(0, 1 << 64, size=(perms, 25),
                                                dtype=np.uint64)
@@ -1778,7 +1821,8 @@ def device_fs_phase(torch, kernels, card, phase, workload, path, stray,
     (`_prove_device_fs`, what prove_fast runs): cold and warm, its
     launches (every kernel of `path`, none of `stray`, one grind, the
     last of `path`), one device-to-host copy, peak memory, its proof equal
-    to prove()'s, warm times of both in turns (`turns_order`); then the
+    to prove()'s, warm times of both in turns (`turns_order`; with none,
+    the warm fast prove and prove()'s first call are the only times); then the
     port's verifier on the proof with `probes`, spans, per-proof bounds,
     synchronizing calls and the profile, each line named after `phase`.
     Returns its launches, per-proof bounds, profiled device time by
@@ -1818,8 +1862,10 @@ def device_fs_phase(torch, kernels, card, phase, workload, path, stray,
     if as_plain(first) != as_plain(proof):
         raise AssertionError(f"two {phase} fast proves differ")
     check_shape(proof, air, params, log_n)
+    # no turns: the warm fast prove is the fast time, and prove() has
+    # only its first call (cold_host_transcript_prove_s)
     turns = warm_turns(timed, prove, fp._prove_device_fs, turns_order)
-    fast_s = statistics.median(turns["fast"])
+    fast_s = statistics.median(turns["fast"] or [warm_s])
     emit({"phase": phase, "log_n": log_n, **info,
           "cold_prove_s": cold_s, "warm_prove_s": warm_s,
           "cold_host_transcript_prove_s": prove_cold_s,
@@ -1829,7 +1875,8 @@ def device_fs_phase(torch, kernels, card, phase, workload, path, stray,
           "pulls": pulls, "launches": launches,
           "warm_fast_s_turns": turns["fast"],
           "warm_prove_s_turns": turns["prove"], "fast_median_s": fast_s,
-          "prove_median_s": statistics.median(turns["prove"]),
+          "prove_median_s": (statistics.median(turns["prove"])
+                             if turns["prove"] else None),
           "proof_bytes": proof.size_in_bytes(), "equals_prove": True})
     phase_verify(config, air, proof, log_n, phase=f"{phase}_verify",
                  probes=probes)
@@ -2034,8 +2081,9 @@ def phase_babybear(torch, np, kernels, card, merkle):
     `device_fs_phase` (probes: a changed opened trace value, commit-phase
     sibling digest and s-box register value; two warm turns of each
     prover under the keccak config, one under the Poseidon2 config, for
-    the script's time), then the transcript chain call by call. Returns its launches, per-proof bounds, profiled device
-    time by kernel and the proof's size."""
+    the script's time), then the transcript chain call by call. Returns
+    its launches, per-proof bounds, profiled device time by kernel and
+    the proof's size."""
     from plonky3_tpu_torch import cli
 
     log_n = 17
@@ -2114,6 +2162,230 @@ def phase_cli(torch, babybear):
           "seconds": secs, "proof_bytes": babybear["proof_bytes"],
           "stdout": lines})
 
+
+def phase_sha256_air_small(torch, np):
+    """Sha256Air (7,728 columns) at 2^8 rows under the keccak and the
+    Poseidon2 configs: both provers on the card equal both on the CPU,
+    every proof verified, and a changed opened trace value rejected."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark import config as stark_config
+    from plonky3_tpu_torch.stark.verifier import (InvalidOpeningArgument,
+                                                  OodEvaluationMismatch,
+                                                  verify)
+
+    log_n, secs, out = 8, {}, {}
+    for merkle in ("keccak", "poseidon2"):
+        make = getattr(stark_config, f"{merkle}_stark_config")
+        air, config, proof, blocks = _cuda_equals_cpu(
+            torch, f"sha256_{merkle}",
+            lambda dev: _air_workload(np, "sha256", dev, log_n=log_n)[:2],
+            [], FriParameters(**SMALL_PARAMS), secs,
+            lambda params, dev, make=make: make(F, E, params, device=dev))
+        bad = copy.deepcopy(proof)
+        _bump_trace_value(bad, E)
+        try:
+            verify(config, air, bad, [])
+        except (OodEvaluationMismatch, InvalidOpeningArgument) as e:
+            out[merkle] = {"fold_blocks": blocks,
+                           "proof_bytes": proof.size_in_bytes(),
+                           "probe": "trace_local",
+                           "raised": type(e).__name__, "message": str(e)}
+        else:
+            raise AssertionError(f"verify accepted the sha256 {merkle} "
+                                 f"probe trace_local")
+    emit({"phase": "sha256_air_small", "rows": 1 << log_n,
+          "width": air.width, "cuda_equals_cpu": True,
+          "fast_equals_prove": True, "verified": 8, **out, **secs})
+
+
+def _poseidon1_workload(np, log_n, device):
+    """(air, trace) of Poseidon1VectorAir(KoalaBear, 16, 8) over 8·2^log_n
+    permutations, the inputs from np.random.default_rng(1) as the main
+    path's (standard form: the reference's trace generator takes them
+    so)."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.models.poseidon1_air import (
+        Poseidon1VectorAir, generate_vectorized_trace_p1)
+
+    air = Poseidon1VectorAir(F, 16, vector_len=8)
+    inputs = F.rand_np(np.random.default_rng(1), (8 << log_n, 16),
+                       monty=False)
+    trace, _ = generate_vectorized_trace_p1(air, inputs, device=device)
+    return air, trace
+
+
+def phase_poseidon1_small(torch, np):
+    """Poseidon1VectorAir(KoalaBear, 16, 8) (1,312 columns, its own fold)
+    at 2^8 rows under the keccak and the Poseidon2 configs: both provers
+    on the card equal both on the CPU, every proof verified."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark import config as stark_config
+
+    log_n, secs, out = 8, {}, {}
+    for merkle in ("keccak", "poseidon2"):
+        make = getattr(stark_config, f"{merkle}_stark_config")
+        air, _, proof, _ = _cuda_equals_cpu(
+            torch, f"poseidon1_{merkle}",
+            lambda dev: _poseidon1_workload(np, log_n, dev), [],
+            FriParameters(**SMALL_PARAMS), secs,
+            lambda params, dev, make=make: make(F, E, params, device=dev))
+        out[merkle] = {"width": air.width,
+                       "proof_bytes": proof.size_in_bytes()}
+    emit({"phase": "poseidon1_small", "rows": 1 << log_n,
+          "cuda_equals_cpu": True, "fast_equals_prove": True, "verified": 8,
+          **out, **secs})
+
+
+def phase_m15_small(torch, np):
+    """The rest of M15 on the card: a JoinedAir of two named FibonacciAirs
+    (2^8 rows) proven on CUDA and on the CPU, equal and verified;
+    batch_inv on 2^20 KoalaBear and BabyBear words (zeros included) equal
+    to the elementwise inverse on the card, both timed by CUDA events;
+    the Ext8 fields' products and inverses on the card equal the CPU's."""
+    from plonky3_tpu_torch.air.composition import JoinedAir, NamedAir
+    from plonky3_tpu_torch.fields import (BabyBear, BabyBearExt8, KoalaBear,
+                                          KoalaBearExt8)
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.models.fibonacci import (
+        FibonacciAir, generate_fibonacci_trace)
+
+    def joined(dev):
+        t1, _ = generate_fibonacci_trace(KoalaBear, 8, device=dev)
+        t2, _ = generate_fibonacci_trace(KoalaBear, 8, a=2, b=3, device=dev)
+        return (JoinedAir(NamedAir("fib_a", FibonacciAir(KoalaBear)),
+                          NamedAir("fib_b", FibonacciAir(KoalaBear))),
+                torch.cat([t1, t2], dim=1))
+
+    secs, out = {}, {}
+    _, publics_a = generate_fibonacci_trace(KoalaBear, 8, device="cpu")
+    _, publics_b = generate_fibonacci_trace(KoalaBear, 8, a=2, b=3,
+                                            device="cpu")
+    air, _, proof, _ = _cuda_equals_cpu(
+        torch, "joined", joined, publics_a + publics_b,
+        FriParameters(**SMALL_PARAMS), secs)
+    out["joined"] = {"width": air.width, "publics": 6, "verified": 4,
+                     "proof_bytes": proof.size_in_bytes()}
+    rng = np.random.default_rng(15)
+    for Fb, E8 in ((KoalaBear, KoalaBearExt8), (BabyBear, BabyBearExt8)):
+        a = torch.from_numpy(Fb.rand_np(rng, (1 << 20,)).astype(
+            np.int64)).cuda()
+        a[::7] = 0
+        got, batch_ms = once_ms(torch, lambda: Fb.batch_inv(a))
+        want, fermat_ms = once_ms(torch, lambda: Fb.inv(a))
+        err = compare(f"{Fb.name} batch_inv", got, want)
+        xt = torch.from_numpy(Fb.rand_np(rng, (4096, 8)).astype(np.int64))
+        yt = torch.from_numpy(Fb.rand_np(rng, (4096, 8)).astype(np.int64))
+        mul_err = compare(f"{Fb.name} Ext8 mul",
+                          E8.mul(xt.cuda(), yt.cuda()), E8.mul(xt, yt).cuda())
+        inv_err = compare(f"{Fb.name} Ext8 inv", E8.inv(xt.cuda()),
+                          E8.inv(xt).cuda())
+        out[Fb.name] = {"batch_inv_words": a.shape[0],
+                        "zeros": int((a == 0).sum()),
+                        "batch_inv_max_abs_err": err,
+                        "batch_inv_ms": batch_ms, "fermat_inv_ms": fermat_ms,
+                        "ext8_elements": xt.shape[0],
+                        "ext8_mul_max_abs_err": mul_err,
+                        "ext8_inv_max_abs_err": inv_err}
+    emit({"phase": "m15_small", **out, **secs})
+
+
+def phase_sha256_air(torch, np, kernels, card):
+    """Sha256Air at full width: 131,072 compressions, a 2^17 x 7,728
+    trace built on the card in row blocks, keccak config,
+    new_benchmark_high_arity(), through `device_fs_phase` with the
+    generic quotient folded by row blocks gathered from the committed
+    LDE (probes: a changed opened trace value, commit-phase sibling digest
+    and next-row value; the warm fast prove and one prove(), for the
+    script's time), then the transcript chain call by call. Returns its
+    launches, per-proof bounds and profiled device time by kernel."""
+    import gc
+
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the trace commit holds most of the card
+    log_n = 17
+    t0 = time.perf_counter()
+    air, trace, _ = _air_workload(np, "sha256", "cuda", log_n=log_n)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if air.width != SHA256_AIR_WIDTH or trace.shape != (1 << log_n,
+                                                        SHA256_AIR_WIDTH):
+        raise AssertionError(f"Sha256Air trace {tuple(trace.shape)}")
+    config = keccak_stark_config(
+        F, E, FriParameters.new_benchmark_high_arity(), device="cuda")
+    out = device_fs_phase(
+        torch, kernels, card, "sha256_air", (config, air, trace), FAST_PATH,
+        P2_KERNELS, (),
+        ("trace_local", "commit_phase_sibling_digest", "trace_next"),
+        {"rows": 1 << log_n, "width": air.width, "perms": 1 << log_n,
+         "compressions": 1 << log_n, "constraints": 8096,
+         "trace_gen_s": gen_s})
+    emit({"phase": "sha256_air_chain_calls",
+          "calls": [{"n": a[2], "k": a[3], "us": ms * 1e3,
+                     "bound_us": chain_bound(card, a[2], a[3])[0] * 1e3}
+                    for fn, a, ms in out.pop("calls")
+                    if fn == "keccak256_chain"]})
+    return out
+
+
+def phase_poseidon1(torch, np, kernels, card, merkle):
+    """Poseidon1VectorAir(KoalaBear, 16, 8) at full size: 2^20
+    permutations, a 2^17 x 1,312 trace built on the card, 1,184
+    constraints folded by the AIR's own fold, new_benchmark_high_arity(),
+    under the keccak config (phase `poseidon1`) or the Poseidon2 config
+    (`poseidon1_poseidon2`, the duplex kernels' <23, 3>), through
+    `device_fs_phase` (the warm fast prove and one prove(); probes: a
+    changed opened trace value, a commit-phase sibling digest, and the
+    proof against the AIR with one more constraint under the keccak
+    config, a changed trace root under the Poseidon2 config). Returns
+    its launches, per-proof bounds and profiled device time by kernel."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark import config as stark_config
+
+    log_n = 17
+    phase = "poseidon1" if merkle == "keccak" else "poseidon1_poseidon2"
+    t0 = time.perf_counter()
+    air, trace = _poseidon1_workload(np, log_n, "cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if trace.shape != (1 << log_n, 1312):
+        raise AssertionError(f"Poseidon1 trace {tuple(trace.shape)}")
+    config = getattr(stark_config, f"{merkle}_stark_config")(
+        F, E, FriParameters.new_benchmark_high_arity(), device="cuda")
+    if merkle == "keccak":
+        path, stray = FAST_PATH, P2_KERNELS
+        probes = ("trace_local", "commit_phase_sibling_digest", "other_air")
+    else:
+        path, stray = POSEIDON2_PATH, KECCAK_KERNELS + P2_KERNELS[2:]
+        probes = ("trace_local", "trace_root", "commit_phase_sibling_digest")
+    out = device_fs_phase(
+        torch, kernels, card, phase, (config, air, trace), path, stray, (),
+        probes, {"rows": 1 << log_n, "width": air.width, "perms": 8 << log_n,
+                 "constraints": 148 * 8, "trace_gen_s": gen_s})
+    calls = out.pop("calls")
+    if merkle == "keccak":
+        emit({"phase": f"{phase}_chain_calls",
+              "calls": [{"n": a[2], "k": a[3], "us": ms * 1e3,
+                         "bound_us": chain_bound(card, a[2], a[3])[0] * 1e3}
+                        for fn, a, ms in calls if fn == "keccak256_chain"]})
+    else:
+        emit({"phase": f"{phase}_chain_calls",
+              "calls": [{"n": a[2], "blocks": max(1, -(-a[2] // 16)),
+                         "us": ms * 1e3,
+                         "bound_us": p2_chain_bound(card, a[2])[0] * 1e3}
+                        for fn, a, ms in calls
+                        if fn == "poseidon2_duplex_chain"]})
+    return out
 
 
 def host_cpu() -> str:
@@ -2311,6 +2583,9 @@ def main(argv=None) -> int:
     timed("blake3_air_small", phase_blake3_air_small, torch, np)
     timed("periodic", phase_periodic, torch, np)
     timed("babybear_small", phase_babybear_small, torch, np)
+    timed("sha256_air_small", phase_sha256_air_small, torch, np)
+    timed("poseidon1_small", phase_poseidon1_small, torch, np)
+    timed("m15_small", phase_m15_small, torch, np)
     full = timed("full", phase_full, torch, np, kernels, card)
     fast = timed("fast", phase_fast, torch, np, kernels, card, full)
     p2 = timed("poseidon2", phase_poseidon2, torch, np, kernels, card)
@@ -2321,16 +2596,24 @@ def main(argv=None) -> int:
     timed("cli", phase_cli, torch, bb)
     bbp2 = timed("babybear_poseidon2", phase_babybear, torch, np, kernels,
                  card, "poseidon2")
+    p1 = timed("poseidon1", phase_poseidon1, torch, np, kernels, card,
+               "keccak")
+    p1p2 = timed("poseidon1_poseidon2", phase_poseidon1, torch, np, kernels,
+                 card, "poseidon2")
+    sha = timed("sha256_air", phase_sha256_air, torch, np, kernels, card)
     # launches, proof_* : the main path (the fast prover) of the kernel's
     # config, keccak or (the duplex transcript's kernels) Poseidon2, and
     # for BabyBear's duplex kernels (<21, 7>, `*_babybear`) the BabyBear
     # Poseidon2 path; *_prove: the keccak config's prove(); *_poseidon2:
     # the NTT kernels on the Poseidon2 path; *_keccak_air, *_blake3_air,
-    # *_babybear: the fast prover's kernels on the keccak-AIR path (2^17
-    # x 2,633), the Blake3-AIR path (2^17 x 9,168) and the BabyBear path
-    # (2^17 x 2,384), keccak config; *_babybear_poseidon2: the NTT kernels
-    # on the BabyBear Poseidon2 path. proof_ms: the kernel's launches of
-    # one prove timed by CUDA events; proof_profiled_ms: by
+    # *_babybear, *_sha256_air, *_poseidon1: the fast prover's kernels on
+    # the keccak-AIR path (2^17 x 2,633), the Blake3-AIR path (2^17 x
+    # 9,168), the BabyBear path (2^17 x 2,384), the Sha256-AIR path (2^17
+    # x 7,728) and the Poseidon1 path (2^17 x 1,312), keccak config;
+    # *_babybear_poseidon2: the NTT kernels on the BabyBear Poseidon2 path;
+    # *_poseidon1_poseidon2: the NTT kernels and the <23, 3> duplex kernels
+    # on the Poseidon1 path's Poseidon2 config. proof_ms: the kernel's
+    # launches of one prove timed by CUDA events; proof_profiled_ms: by
     # torch.profiler, where it recorded every launch. Every per-proof
     # share goes through share().
     for name, rec in records.items():
@@ -2348,9 +2631,13 @@ def main(argv=None) -> int:
             rec["launches_poseidon2"] = p2["launches"][name]
             paths.append(("_babybear_poseidon2", bbp2))
             rec["launches_babybear_poseidon2"] = bbp2["launches"][name]
+        if name in POSEIDON2_PATH:
+            paths.append(("_poseidon1_poseidon2", p1p2))
+            rec["launches_poseidon1_poseidon2"] = p1p2["launches"][name]
         if name in FAST_PATH:
             for key, got in (("_keccak_air", kair), ("_blake3_air", b3),
-                             ("_babybear", bb)):
+                             ("_babybear", bb), ("_sha256_air", sha),
+                             ("_poseidon1", p1)):
                 paths.append((key, got))
                 rec[f"launches{key}"] = got["launches"][name]
         rec["launches"] = main["launches"][name]

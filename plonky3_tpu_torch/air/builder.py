@@ -20,8 +20,11 @@ backend; the backend decides what a value is:
 A filter (`when`, `when_first_row`, `when_last_row`, `when_transition`)
 multiplies every constraint emitted through it, filter on the left, as
 in the reference. `builder.periodic` holds the AIR's periodic columns.
+`backend.const_vec(values)` is a vector of constants, one a lane of a
+stacked value (Sha256Air's round constants). The debug backend labels
+its failures with the namespaces an AIR pushes (`air/composition.py`).
 Extension-field constraints (`assert_zero_ext`) and bus interactions
-come with the first AIR that needs them (ROADMAP M15, M17).
+come with the first AIR that needs them (ROADMAP M17).
 """
 
 from __future__ import annotations
@@ -177,6 +180,9 @@ class SymbolicBackend:
     def const(self, c):
         return 0
 
+    def const_vec(self, values):
+        return [0] * len(values)
+
     def add(self, a, b):
         return _ew(max, a, b)
 
@@ -202,6 +208,9 @@ class SymbolicBackend:
         self.constraint_degrees.extend(flat)
 
 
+_CONST_VECS = {}  # (field, values, device) -> ProverBackend.const_vec
+
+
 class ProverBackend:
     """Int64 Montgomery tensors over the quotient domain; eager fold.
 
@@ -220,6 +229,19 @@ class ProverBackend:
 
     def const(self, c):
         return self.F.const(c)
+
+    def const_vec(self, values):
+        """(L, 1): broadcasts against lane-stacked (L, Nq) values; made
+        once per field, values and device (one copy a proof, not one a
+        fold block)."""
+        F, device = self.F, self.alpha_pows.device
+        key = (F.name, tuple(int(v) for v in values), device)
+        hit = _CONST_VECS.get(key)
+        if hit is None:
+            hit = _CONST_VECS[key] = torch.tensor(
+                [F.const(v) for v in key[1]], dtype=torch.int64,
+                device=device).reshape(-1, 1)
+        return hit
 
     def add(self, a, b):
         return self.F.add(a, b)
@@ -277,6 +299,9 @@ class VerifierBackend:
     def const(self, c):
         return self.E.from_base_h(c)
 
+    def const_vec(self, values):
+        return [self.E.from_base_h(int(v)) for v in values]
+
     def add(self, a, b):
         return _ew(self.E.add_h, a, b)
 
@@ -305,16 +330,33 @@ class VerifierBackend:
 class DebugBackend:
     """Exact row-wise evaluation on numpy uint64 arrays of standard-form
     values (31-bit fields: a product of two fits); lists each failing
-    constraint with its first ten failing rows."""
+    constraint with its first ten failing rows, labelled "a/b/<index>"
+    under the namespaces pushed (air/src/named.rs NamedAirBuilder)."""
 
     def __init__(self, F, n_rows):
         self.P = np.uint64(F.P)
         self.n = n_rows
         self.failures = []
         self.idx = 0
+        self._namespaces = []
+
+    def push_namespace(self, name):
+        self._namespaces.append(str(name))
+
+    def pop_namespace(self):
+        self._namespaces.pop()
+
+    def _label(self):
+        if not self._namespaces:
+            return self.idx
+        return "/".join(self._namespaces) + f"/{self.idx}"
 
     def const(self, c):
         return np.full(self.n, c % int(self.P), dtype=np.uint64)
+
+    def const_vec(self, values):
+        # a stacked value is a list here, so one scalar a lane
+        return [np.uint64(int(v) % int(self.P)) for v in values]
 
     def add(self, a, b):
         return _ew(lambda x, y: (x + y) % self.P, a, b)
@@ -331,7 +373,7 @@ class DebugBackend:
     def emit(self, c):
         bad = np.nonzero(c != 0)[0]
         if bad.size:
-            self.failures.append(dict(constraint=self.idx,
+            self.failures.append(dict(constraint=self._label(),
                                       rows=bad[:10].tolist()))
         self.idx += 1
 

@@ -38,15 +38,17 @@ def _ints(x):
 
 
 def field_from(obj):
-    """The port's field (or degree-4 extension) with the constants of
-    another package's field object: matched by name, and every normative
-    constant must agree (ValueError otherwise)."""
+    """The port's field (or its degree-4 or degree-8 extension) with the
+    constants of another package's field object: matched by name, and
+    every normative constant must agree (ValueError otherwise)."""
     from . import fields
 
     base = getattr(obj, "base", None)
     if base is not None:  # a binomial extension
         port = {("KoalaBear", 4): fields.KoalaBearExt4,
-                ("BabyBear", 4): fields.BabyBearExt4}.get((base.name, obj.D))
+                ("KoalaBear", 8): fields.KoalaBearExt8,
+                ("BabyBear", 4): fields.BabyBearExt4,
+                ("BabyBear", 8): fields.BabyBearExt8}.get((base.name, obj.D))
         keys = ("D", "W", "DTH_ROOT", "EXT_GENERATOR", "EXT_TWO_ADICITY")
     else:
         port = {"KoalaBear": fields.KoalaBear,
@@ -73,3 +75,15 @@ def poseidon2_from(perm):
         rc_external_initial=_ints(perm.rc_external_initial),
         rc_external_final=_ints(perm.rc_external_final),
         rc_internal=_ints(perm.rc_internal))
+
+
+def poseidon1_from(perm):
+    """A port `Poseidon1` with another package's permutation's field (by
+    `field_from`), width, s-box degree, half the full rounds, round
+    constants and MDS first row."""
+    from .hashes.poseidon1 import Poseidon1
+
+    return Poseidon1(
+        F=field_from(perm.F), width=int(perm.width), d=int(perm.d),
+        half_full=int(perm.half_full), rc=_ints(perm.rc),
+        mds_first_row=_ints(perm.mds_first_row))

@@ -145,6 +145,24 @@ class Monty31:
         """Elementwise inverse by Fermat; 0 maps to 0."""
         return self.exp(a, self.P - 2)
 
+    def batch_inv(self, a):
+        """Elementwise inverse by the Montgomery trick: two log-depth
+        scans and one Fermat inverse; 0 maps to 0."""
+        from .batch_inv import batch_inv
+
+        return batch_inv(self, a)
+
+    def batch_inv_np(self, a: np.ndarray) -> np.ndarray:
+        from .batch_inv import batch_inv_np
+
+        return batch_inv_np(self, a)
+
+    def try_sqrt_h(self, a: int):
+        """Tonelli–Shanks: r with r² = a, or None."""
+        from .batch_inv import try_sqrt_h
+
+        return try_sqrt_h(self, a)
+
     def sum(self, x, dim=0):
         """Exact modular sum along `dim` (fewer than 2^32 terms)."""
         return x.sum(dim=dim) % self.P

@@ -1,11 +1,12 @@
-"""KoalaBear, BabyBear and their degree-4 extensions: the normative
-constants.
+"""KoalaBear, BabyBear and their degree-4 and degree-8 extensions: the
+normative constants.
 
 Copied from `plonky3_tpu/fields/params.py` (koala-bear/src/koala_bear.rs:
 PRIME :21, MONTY_MU :24, MONTY_GEN :56, TWO_ADIC_GENERATORS :70-77, the
-D=4 binomial extension :101-113; baby-bear/src/baby_bear.rs: PRIME
-0x78000001, MONTY_MU 0x88000001, MONTY_GEN 31, TWO_ADICITY 27, the D=4
-extension). Proofs depend on every value.
+binomial extensions D=4 :101-113 and D=8 :116-131; baby-bear/src/
+baby_bear.rs: PRIME 0x78000001, MONTY_MU 0x88000001, MONTY_GEN 31,
+TWO_ADICITY 27, the D=4 and D=8 extensions). Proofs depend on every
+value.
 """
 
 from __future__ import annotations
@@ -48,8 +49,18 @@ KOALABEAR_EXT4 = dict(
     D=4, W=3, DTH_ROOT=2113994754, EXT_GENERATOR=(2, 1, 0, 0),
     EXT_TWO_ADICITY=26,
 )
+# D=8: W=3, DTH_ROOT=1748172362, EXT_GENERATOR=[10,1,0,...], two-adicity 27.
+KOALABEAR_EXT8 = dict(
+    D=8, W=3, DTH_ROOT=1748172362,
+    EXT_GENERATOR=(10, 1, 0, 0, 0, 0, 0, 0), EXT_TWO_ADICITY=27,
+)
 # D=4: W=11, DTH_ROOT=1728404513, EXT_GENERATOR=[8,1,0,0], two-adicity 29.
 BABYBEAR_EXT4 = dict(
     D=4, W=11, DTH_ROOT=1728404513, EXT_GENERATOR=(8, 1, 0, 0),
     EXT_TWO_ADICITY=29,
+)
+# D=8: W=11, DTH_ROOT=420899707, EXT_GENERATOR=[5,1,0,...], two-adicity 30.
+BABYBEAR_EXT8 = dict(
+    D=8, W=11, DTH_ROOT=420899707,
+    EXT_GENERATOR=(5, 1, 0, 0, 0, 0, 0, 0), EXT_TWO_ADICITY=30,
 )

@@ -2,8 +2,9 @@
 
 Port of `plonky3_tpu/hashes/keccak_pallas.py` (`keccak_sponge_rows_pallas`,
 `keccak_compress_pallas`). All take and return int32 tensors holding u32
-words. A CPU tensor takes the plain version (torch int64 lanes with masked
-right shifts); a CUDA tensor launches the kernel.
+words. A CPU tensor takes the plain version (`hashes/keccak.py::keccak_f`
+on a (25, h) int64 tensor, lanes first); a CUDA tensor launches the
+kernel.
 
 - `keccak_sponge_rows`: the leaf hash, (h, w) rows -> (h, 8) digests.
 - `keccak_compress`: one tree level, (h, 8) + (h, 8) -> (h, 8).
@@ -27,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .keccak import RC64, keccak_f
+from .keccak import keccak_f
 
 RATE = 17  # u64 lanes per absorb block
 RATE_WORDS = 34  # keccak-256 rate, 136 bytes, as u32 words
@@ -37,49 +38,31 @@ LADDER_LOG_NODES = 9  # log2 of LADDER_NODES in csrc/keccak.cu
 _M32 = 0xFFFFFFFF
 
 
-def _signed64(x: int) -> int:
-    return x - (1 << 64) if x >> 63 else x
-
-
-_RC_SIGNED = tuple(_signed64(rc) for rc in RC64)
-
-
-def _rotl_t(x, r):
-    return (x << r) | ((x >> (64 - r)) & ((1 << r) - 1))
-
-
 def _lanes(words):
-    """(h, w) int32 words -> list of ceil(w/2) int64 lane columns."""
+    """(h, w) int32 words -> (ceil(w/2), h) int64 lanes, lanes first."""
     v = words.to(torch.int64) & _M32
     if v.shape[1] % 2:
         v = torch.cat([v, torch.zeros_like(v[:, :1])], dim=1)
-    lo, hi = v[:, 0::2], v[:, 1::2]
-    lanes = lo | (hi << 32)
-    return [lanes[:, j] for j in range(lanes.shape[1])]
+    return (v[:, 0::2] | (v[:, 1::2] << 32)).T
 
 
 def _digest(st):
-    """First 4 lanes -> (h, 8) int32 words (lo, hi)."""
-    words = []
-    for i in range(4):
-        words.append(st[i] & _M32)
-        words.append((st[i] >> 32) & _M32)
-    return torch.stack(words, dim=1).to(torch.int32)
-
-
-def _sponge(lanes, h, device):
-    zero = torch.zeros(h, dtype=torch.int64, device=device)
-    st = [zero] * 25
-    for start in range(0, len(lanes), RATE):
-        block = lanes[start:start + RATE]
-        st = list(block) + st[len(block):]
-        st = keccak_f(st, _rotl_t, _RC_SIGNED)
-    return _digest(st)
+    """A (25, h) state's first 4 lanes -> (h, 8) int32 words (lo, hi)."""
+    lanes = st[:4].T
+    return torch.stack([lanes & _M32, (lanes >> 32) & _M32],
+                       dim=2).reshape(-1, OUT_WORDS).to(torch.int32)
 
 
 def keccak_sponge_rows_plain(flat):
-    """(h, w) int32 rows -> (h, 8) int32 digests, in plain PyTorch."""
-    return _sponge(_lanes(flat), flat.shape[0], flat.device)
+    """(h, w) int32 rows -> (h, 8) int32 digests, in plain PyTorch:
+    overwrite-mode absorb of RATE lanes a block."""
+    lanes = _lanes(flat)
+    st = torch.zeros((25, flat.shape[0]), dtype=torch.int64,
+                     device=flat.device)
+    for start in range(0, lanes.shape[0], RATE):
+        block = lanes[start:start + RATE]
+        st = keccak_f(torch.cat([block, st[block.shape[0]:]]))
+    return _digest(st)
 
 
 def keccak_compress_plain(left, right):
@@ -109,11 +92,12 @@ def _keccak256_rows(msgs):
     buf[:, :n] = msgs
     buf[:, n] ^= 1
     buf[:, -1] ^= 0x80000000
-    st = [torch.zeros(h, dtype=torch.int64, device=msgs.device)] * 25
+    pairs = buf.view(h, nb, RATE, 2)
+    blocks = pairs[..., 0] | (pairs[..., 1] << 32)  # (h, nb, RATE) lanes
+    st = torch.zeros((25, h), dtype=torch.int64, device=msgs.device)
     for b in range(nb):
-        lanes = _lanes(buf[:, b * RATE_WORDS:(b + 1) * RATE_WORDS])
-        st = [s ^ v for s, v in zip(st, lanes)] + st[RATE:]
-        st = keccak_f(st, _rotl_t, _RC_SIGNED)
+        st[:RATE] ^= blocks[:, b].T
+        st = keccak_f(st)
     return _digest(st)
 
 

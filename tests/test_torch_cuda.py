@@ -502,3 +502,91 @@ def test_babybear_commit_and_proof_equal_cpu(cuda, kind):
         out[dev.type + "_prove"] = prove(cfg, air, trace, [])
     assert out["cuda_commit"] == out["cpu_commit"]
     assert out["cuda"] == out["cpu"] == out["cpu_prove"] == out["cuda_prove"]
+
+
+def _m15_air(name, dev):
+    """(air, trace, publics) at small size on `dev`: Sha256Air (8 rows,
+    7,728 columns), Poseidon1VectorAir(KoalaBear, 16, 8) (16 rows, 1,312
+    columns) or two named FibonacciAirs joined (16 rows)."""
+    from plonky3_tpu_torch.air.composition import JoinedAir, NamedAir
+    from plonky3_tpu_torch.models import fibonacci, poseidon1_air
+    from plonky3_tpu_torch.models.sha256_air import (Sha256Air,
+                                                     generate_sha256_trace)
+
+    rng = np.random.default_rng(8)
+    if name == "sha256":
+        inputs = rng.integers(0, 1 << 32, size=(8, 24),
+                              dtype=np.uint64).astype(np.uint32)
+        return Sha256Air(F), generate_sha256_trace(F, inputs, device=dev), []
+    if name == "poseidon1":
+        air = poseidon1_air.Poseidon1VectorAir(F, 16, vector_len=8)
+        inputs = rng.integers(0, F.P, size=(128, 16), dtype=np.uint32)
+        trace, _ = poseidon1_air.generate_vectorized_trace_p1(air, inputs,
+                                                              device=dev)
+        return air, trace, []
+    t1, p1 = fibonacci.generate_fibonacci_trace(F, 4, device=dev)
+    t2, p2 = fibonacci.generate_fibonacci_trace(F, 4, a=2, b=3, device=dev)
+    air = JoinedAir(NamedAir("fib_a", fibonacci.FibonacciAir(F)),
+                    NamedAir("fib_b", fibonacci.FibonacciAir(F)))
+    return air, torch.cat([t1, t2], dim=1), p1 + p2
+
+
+@pytest.mark.parametrize("kind", ["keccak", "poseidon2"])
+@pytest.mark.parametrize("name", ["sha256", "poseidon1", "joined"])
+def test_m15_proofs_equal_cpu(cuda, name, kind):
+    """Sha256Air, Poseidon1VectorAir and a JoinedAir: the trace on CUDA
+    equals the CPU's, both provers on CUDA give the CPU's proof, and the
+    port's verifier accepts it."""
+    from plonky3_tpu_torch.stark import fast_prover
+    from plonky3_tpu_torch.stark.prover import prove
+    from plonky3_tpu_torch.stark.verifier import verify
+
+    out, traces = [], []
+    for dev in (cuda, torch.device("cpu")):
+        air, trace, publics = _m15_air(name, dev)
+        traces.append(trace.cpu())
+        cfg = _configs()[kind][0](F, E, _small_params(), device=dev)
+        for fn in (prove, fast_prover._prove_device_fs):
+            proof = fn(cfg, air, trace, publics)
+            verify(cfg, air, proof, publics)
+            out.append(proof)
+    assert torch.equal(traces[0], traces[1])
+    assert all(p == out[0] for p in out)
+
+
+def test_batch_inv_and_ext8_equal_cpu(cuda):
+    """batch_inv on 2^16 words with zeros equals the Fermat inverse on the
+    card; the Ext8 products and inverses on the card equal the CPU's."""
+    from plonky3_tpu_torch.fields import (BabyBear, BabyBearExt8, KoalaBear,
+                                          KoalaBearExt8)
+
+    rng = np.random.default_rng(13)
+    for Fb, E8 in ((KoalaBear, KoalaBearExt8), (BabyBear, BabyBearExt8)):
+        a = torch.from_numpy(Fb.rand_np(rng, (1 << 16,)).astype(np.int64))
+        a[::9] = 0
+        got = Fb.batch_inv(a.to(cuda))
+        assert torch.equal(got, Fb.inv(a.to(cuda)))
+        assert torch.equal(got.cpu(), Fb.batch_inv(a))
+        x = torch.from_numpy(Fb.rand_np(rng, (257, 8)).astype(np.int64))
+        y = torch.from_numpy(Fb.rand_np(rng, (257, 8)).astype(np.int64))
+        assert torch.equal(E8.mul(x.to(cuda), y.to(cuda)).cpu(),
+                           E8.mul(x, y))
+        assert torch.equal(E8.inv(x.to(cuda)).cpu(), E8.inv(x))
+
+
+def test_poseidon1_and_mds_equal_cpu(cuda):
+    """Poseidon1's tensor permutation and the coset MDS on the card equal
+    the CPU's."""
+    from plonky3_tpu_torch.hashes.mds import CosetMds
+    from plonky3_tpu_torch.hashes.poseidon1 import default_poseidon1
+
+    rng = np.random.default_rng(14)
+    for width in (16, 24):
+        perm = default_poseidon1(F, width)
+        x = torch.from_numpy(F.rand_np(rng, (1000, width)).astype(np.int64))
+        assert torch.equal(perm.permute_device(x.to(cuda)).cpu(),
+                           perm.permute_device(x))
+    coset = CosetMds(F, 16)
+    x = torch.from_numpy(F.rand_np(rng, (64, 16)).astype(np.int64))
+    assert torch.equal(coset.permute_device(x.to(cuda)).cpu(),
+                       coset.permute_device(x))
