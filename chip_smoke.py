@@ -107,7 +107,7 @@ Phases, each printed as one JSON line:
   poseidon2 the same workload under poseidon2_stark_config (Poseidon2
            sponge and compression, field digests, the duplex transcript):
            the device-transcript prover cold and warm, its proof equal to
-           prove()'s, warm times of both in turns, launches (the duplex
+           prove()'s (its one call timed), launches (the duplex
            chain and grind, no keccak kernel), one device-to-host copy,
            peak memory, spans, per-proof bounds, synchronizing calls,
            profile; then the port's verifier accepts the proof and
@@ -117,7 +117,7 @@ Phases, each printed as one JSON line:
            full width: 5,461 permutations, a 2^17 x 2,633 KeccakAir trace,
            keccak config, new_benchmark_high_arity(), through the generic
            quotient path: the device-transcript prover cold and warm, its
-           proof equal to prove()'s, warm times of both in turns,
+           proof equal to prove()'s (its one call timed),
            launches, one copy, peak memory; the port's verifier accepts
            the proof and rejects a changed opened trace value, a changed
            commit-phase sibling digest and a changed next-row value; then
@@ -161,7 +161,38 @@ Phases, each printed as one JSON line:
   sha256_air Sha256Air at full width: 131,072 compressions, a 2^17 x
            7,728 trace built on the card, keccak config, the generic
            quotient folded by row blocks, the checks and probes of
-           blake3_air with the warm fast prove and one prove().
+           blake3_air with the warm fast prove and one prove();
+  zk_small zk_stark_config (hiding MMCS, HidingFriPcs, the masked
+           quotient, R) at 2^8 rows, log_blowup 2: FibonacciAir and
+           KeccakAir with 10 permutations proven on the card equal to the
+           CPU's from seed 1, verified; seed 2 gives other roots; a
+           changed random opening is rejected; Poseidon2VectorAir under
+           ZK raises;
+  zk_air   KeccakAir at 2^17 x 2,633 (the CLI's keccak-f-permutations)
+           under zk_stark_config, BLOWUP4_PARAMS (the main path's FRI
+           with a blowup of 4: the ZK quotient's domain), prove(): a
+           cold prove with spans (the host's random draw of 345 M words
+           among them) and peak memory, two warm proves, all three equal;
+           launches (K1, K2 at 2^20 x 2,634, the duplex grind, no keccak
+           kernel); verified, and a changed opened trace value, random
+           opening and salt word rejected; per-proof bounds. The kernels
+           phase holds K1 and K2 at 2^18 and 2^20 x 2,634 (the `*_zk_air`
+           keys);
+  preprocessed  EvenZeroAir (a fixed selector column): CUDA equals the
+           CPU at 2^8 rows, then 2^20 rows proven, verified, and a bad
+           trace rejected (keccak config);
+  lookup   RangeCheckAir with one LogUp lookup (log_blowup 2: its
+           constraints reach degree 4): the permutation trace (built on
+           the card by a prefix sum) and the proof equal the CPU's at 2^8
+           rows; 2^20 rows proven and verified; an unbalanced trace
+           refused; the permutation trace's time with batch_inv and with
+           the Fermat inverse;
+  batch    the lookup-free batch STARK: CUDA equals the CPU at 2^8-scale
+           heights under both configs; then one keccak-config proof of
+           Poseidon2VectorAir at 2^17 x 1,312, KeccakAir at 2^16 x 2,633
+           and FibonacciAir at 2^10 (compress_kernel for the injected
+           heights), cold, warm with its launches, verified, per-proof
+           bounds.
 Every profile checks that it recorded each of the port's kernels as many
 times as the prove launched it, and profiles again where it did not.
 Before the last line: one JSON object listing every kernel. The last line
@@ -184,6 +215,13 @@ import sys
 import time
 from pathlib import Path
 from typing import NamedTuple
+
+# The caching allocator maps a segment's pages as it grows
+# (expandable_segments): the ZK phase's 22 GB matrices, allocated again
+# in each prove, would otherwise find their earlier segments pinned by
+# small long-lived tensors (the second prove ran out of memory with 40
+# GB reserved and free). Read when the first CUDA tensor is made.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 # H100 SXM published HBM bandwidth (NVIDIA data sheet). The integer peak
 # is read from the card in phase_card: SMs × 64 lanes × the maximum SM
@@ -816,11 +854,18 @@ BLAKE3_AIR_WIDTH = 9168
 BABYBEAR_WIDTH = 2384
 # Sha256Air's (models/sha256_air.py NUM_SHA256_COLS)
 SHA256_AIR_WIDTH = 7728
+# KeccakAir's ZK trace (`zk_air`): its columns and one random codeword
+# column over the doubled domain, 2^18 rows, whose LDE at a blowup of 4
+# has 2^20
+ZK_TRACE_WIDTH = KECCAK_AIR_WIDTH + 1
 AIR_WIDTHS = {KECCAK_AIR_WIDTH: "keccak_air", BLAKE3_AIR_WIDTH: "blake3_air",
-              BABYBEAR_WIDTH: "babybear", SHA256_AIR_WIDTH: "sha256_air"}
+              BABYBEAR_WIDTH: "babybear", SHA256_AIR_WIDTH: "sha256_air",
+              ZK_TRACE_WIDTH: "zk_air"}
+# the log height of a path's trace LDE, where it is not 18
+LDE_LOG_N = {ZK_TRACE_WIDTH: 20}
 # the widths whose inputs are drawn on the card and whose plain versions
 # run on a part of the kernel's work (PLAIN_NTT_COLUMNS, PLAIN_SPONGE_ROWS)
-WIDE_WIDTHS = (BLAKE3_AIR_WIDTH, SHA256_AIR_WIDTH)
+WIDE_WIDTHS = (BLAKE3_AIR_WIDTH, SHA256_AIR_WIDTH, ZK_TRACE_WIDTH)
 # columns of one plain NTT at a wide width (the whole 2^18 x 9,168 int64
 # transform and its temporaries do not fit the card at once)
 PLAIN_NTT_COLUMNS = 2048
@@ -838,17 +883,18 @@ def at_width(path, err, ms, ms_src, wall, plain, b, sh, shape):
             f"shape_{path}": shape}
 
 
-def plain_by_columns(torch, plain, x, got, what):
+def plain_by_columns(torch, plain, x, got, what,
+                     columns=PLAIN_NTT_COLUMNS):
     """A column-wise function's plain version over x in blocks of
-    PLAIN_NTT_COLUMNS columns, each held against the same columns of the
+    `columns` columns, each held against the same columns of the
     kernel's output `got`: (max abs err, the plain versions' summed
     milliseconds by CUDA events)."""
     err, ms = 0, 0.0
-    for c in range(0, x.shape[1], PLAIN_NTT_COLUMNS):
-        part = x[:, c:c + PLAIN_NTT_COLUMNS].contiguous()
+    for c in range(0, x.shape[1], columns):
+        part = x[:, c:c + columns].contiguous()
         want, t = once_ms(torch, lambda: plain(part))
         err = max(err, compare(f"{what} columns {c}",
-                               got[:, c:c + PLAIN_NTT_COLUMNS], want))
+                               got[:, c:c + columns], want))
         ms += t
         del want
     return err, ms
@@ -872,12 +918,13 @@ def phase_kernels(torch, np, card):
     rng = np.random.default_rng(5)
     records = {}
 
-    # NTT: (log_n, w, inverse, zero_top); the first two and the ninth
-    # and tenth are the main path's shapes (trace iDFT and LDE,
-    # quotient-chunk iDFT and LDE), the third to tenth the keccak-AIR,
-    # Blake3-AIR, BabyBear and Sha256-AIR paths' trace iDFT and LDE (at
-    # the wide widths the plain version runs PLAIN_NTT_COLUMNS columns at
-    # a time; at the BabyBear width over BabyBear's tables); the last
+    # NTT: (log_n, w, inverse, zero_top); the first two and the 13th
+    # and 14th are the main path's shapes (trace iDFT and LDE,
+    # quotient-chunk iDFT and LDE), the third to 12th the keccak-AIR,
+    # Blake3-AIR, BabyBear, Sha256-AIR and ZK keccak-AIR paths' trace
+    # iDFT and LDE (at the wide widths the plain version runs
+    # PLAIN_NTT_COLUMNS columns at a time; at the BabyBear width over
+    # BabyBear's tables; the ZK trace's LDE is 2^20 rows); the last
     # three go through more than one level of the plan.
     ntt_cases = [(17, 1312, True, False), (18, 1312, False, True),
                  (17, KECCAK_AIR_WIDTH, True, False),
@@ -888,6 +935,8 @@ def phase_kernels(torch, np, card):
                  (18, BABYBEAR_WIDTH, False, True),
                  (17, SHA256_AIR_WIDTH, True, False),
                  (18, SHA256_AIR_WIDTH, False, True),
+                 (18, ZK_TRACE_WIDTH, True, False),
+                 (20, ZK_TRACE_WIDTH, False, True),
                  (17, 4, True, False), (18, 4, False, True),
                  (1, 5, False, False), (1, 5, True, True),
                  (6, 5, False, False), (6, 5, True, False),
@@ -910,8 +959,11 @@ def phase_kernels(torch, np, card):
             return nc.dif_fused_plain(Fw, part, log_n, inverse, zero_top)
 
         if w in WIDE_WIDTHS:
-            err, plain = plain_by_columns(torch, plain_ntt, x, got,
-                                          f"ntt {log_n} {w}")
+            # as many int64 values a block as 2^18 rows of
+            # PLAIN_NTT_COLUMNS (the ZK LDE has 2^20 rows)
+            err, plain = plain_by_columns(
+                torch, plain_ntt, x, got, f"ntt {log_n} {w}",
+                PLAIN_NTT_COLUMNS >> max(0, log_n - 18))
         elif w in AIR_WIDTHS:  # the plain run compared is the one timed
             want, plain = once_ms(torch, lambda: plain_ntt(x))
             err = compare(f"ntt {log_n} {w}", got, want)
@@ -929,7 +981,7 @@ def phase_kernels(torch, np, card):
                "k2_launches": ran["ntt_k2"], "max_abs_err": err}
         if w in WIDE_WIDTHS:
             rec["plain_columns"] = PLAIN_NTT_COLUMNS
-        if log_n in (17, 18):
+        if log_n in (17, 18) or (log_n, w) == (20, ZK_TRACE_WIDTH):
             n = 1 << log_n
             s1, s2 = steps
             log_a, log_b = s1.log_a, s1.log_b
@@ -964,7 +1016,7 @@ def phase_kernels(torch, np, card):
                         wall_ms=wall, plain_ms=plain,
                         bound_ms=b[0], bound_by=b[1], library_ms=None,
                         share=sh, shape=[log_n, w, "zero_top"])
-            if log_n == 18 and w in AIR_WIDTHS:
+            if log_n == LDE_LOG_N.get(w, 18) and w in AIR_WIDTHS:
                 for name, ms, ms_src, wall, b, sh in (
                         ("ntt_k1", k1, k1_src, k1_wall, b1, sh1),
                         ("ntt_k2", k2, k2_src, k2_wall, b2, sh2)):
@@ -1904,9 +1956,8 @@ def device_fs_phase(torch, kernels, card, phase, workload, path, stray,
 def phase_poseidon2(torch, np, kernels, card):
     """The benchmark workload under poseidon2_stark_config through
     `device_fs_phase` (probes: a changed opened trace value, trace root
-    and commit-phase sibling digest; one warm turn of each prover beside
-    the warm fast prove, the keccak phases take two, for the script's
-    time), then the duplex
+    and commit-phase sibling digest; no warm turns beside the warm fast
+    prove and prove()'s one call, for the script's time), then the duplex
     chain call by call and the plain-torch hashing of the trace tree.
     Returns its launches, per-proof bounds and profiled device time by
     kernel."""
@@ -1919,7 +1970,7 @@ def phase_poseidon2(torch, np, kernels, card):
     config, air, trace = _workload(np, log_n, params, "cuda", "poseidon2")
     out = device_fs_phase(
         torch, kernels, card, "poseidon2", (config, air, trace),
-        POSEIDON2_PATH, KECCAK_KERNELS, ("fast", "prove"),
+        POSEIDON2_PATH, KECCAK_KERNELS, (),
         ("trace_local", "trace_root", "commit_phase_sibling_digest"),
         {"perms": 8 << log_n})
     calls = out.pop("calls")
@@ -1956,7 +2007,8 @@ def phase_keccak_air(torch, np, kernels, card):
     width: 5,461 permutations, a 2^17 x 2,633 KeccakAir trace (generated
     once), keccak_stark_config, new_benchmark_high_arity(), through
     `device_fs_phase` (probes: a changed opened trace value, commit-phase
-    sibling digest and next-row value; two warm turns of each prover),
+    sibling digest and next-row value; no warm turns, for the script's
+    time),
     then the transcript chain call by call. Returns its launches,
     per-proof bounds and profiled device time by kernel."""
     from plonky3_tpu_torch.fields import KoalaBear as F
@@ -1978,7 +2030,7 @@ def phase_keccak_air(torch, np, kernels, card):
         F, E, FriParameters.new_benchmark_high_arity(), device="cuda")
     out = device_fs_phase(
         torch, kernels, card, "keccak_air", (config, air, trace), FAST_PATH,
-        (), ("prove", "fast", "fast", "prove"),
+        (), (),
         ("trace_local", "commit_phase_sibling_digest", "trace_next"),
         {"rows": 1 << log_n, "width": air.width, "perms": perms,
          "trace_gen_s": gen_s})
@@ -1998,7 +2050,8 @@ def phase_blake3_air(torch, np, kernels, card):
     new_benchmark_high_arity(), through `device_fs_phase` with the
     generic quotient folded by row blocks straight from the committed
     LDE (probes: a changed opened trace value, commit-phase sibling
-    digest and next-row value; two warm turns of each prover), then the
+    digest and next-row value; no warm turns, for the script's time),
+    then the
     transcript chain call by call. Returns its launches, per-proof bounds
     and profiled device time by kernel."""
     from plonky3_tpu_torch.fields import KoalaBear as F
@@ -2018,7 +2071,7 @@ def phase_blake3_air(torch, np, kernels, card):
         F, E, FriParameters.new_benchmark_high_arity(), device="cuda")
     out = device_fs_phase(
         torch, kernels, card, "blake3_air", (config, air, trace), FAST_PATH,
-        (), ("prove", "fast", "fast", "prove"),
+        (), (),
         ("trace_local", "commit_phase_sibling_digest", "trace_next"),
         {"rows": 1 << log_n, "width": air.width, "perms": 1 << log_n,
          "compressions": 1 << log_n, "trace_gen_s": gen_s})
@@ -2079,9 +2132,8 @@ def phase_babybear(torch, np, kernels, card, merkle):
     keccak config (phase `babybear`) or the Poseidon2 config
     (`babybear_poseidon2`, the duplex kernels' <21, 7>), through
     `device_fs_phase` (probes: a changed opened trace value, commit-phase
-    sibling digest and s-box register value; two warm turns of each
-    prover under the keccak config, one under the Poseidon2 config, for
-    the script's time), then the transcript chain call by call. Returns
+    sibling digest and s-box register value; no warm turns, for the
+    script's time), then the transcript chain call by call. Returns
     its launches, per-proof bounds, profiled device time by kernel and
     the proof's size."""
     from plonky3_tpu_torch import cli
@@ -2102,8 +2154,7 @@ def phase_babybear(torch, np, kernels, card, merkle):
         stray = KECCAK_KERNELS + P2_KERNELS[:2]
     out = device_fs_phase(
         torch, kernels, card, phase, (job.config, job.air, job.trace), path,
-        stray, ("prove", "fast", "fast", "prove") if merkle == "keccak-f"
-        else ("fast", "prove"),
+        stray, (),
         ("trace_local", "commit_phase_sibling_digest", "trace_register"),
         {"rows": 1 << log_n, "width": job.air.width,
          "perms": 8 << log_n, "constraints": 282 * 8,
@@ -2388,6 +2439,471 @@ def phase_poseidon1(torch, np, kernels, card, merkle):
     return out
 
 
+# ---- M16 and the first part of M17: ZK, preprocessed, lookup, batch ----
+
+# The main path's FRI parameters with a blowup of 4 and half the queries
+# (116 conjectured bits, as its). KeccakAir under ZK (a trace of degree
+# 2n, a quotient of degree up to 6n over 8n rows) and the LogUp
+# constraints (degree 4, a quotient domain of 4n) need a quotient domain
+# four times the trace's domain, which its LDE must hold
+BLOWUP4_PARAMS = dict(log_blowup=2, log_final_poly_len=0, max_log_arity=3,
+                      num_queries=50, commit_proof_of_work_bits=0,
+                      query_proof_of_work_bits=16)
+SMALL_BLOWUP4_PARAMS = {**SMALL_PARAMS, "log_blowup": 2}
+
+# the kernels of the ZK path (Poseidon2 trees in plain torch, the host
+# duplex transcript's grind on the card) and what it must not launch
+ZK_PATH = ("ntt_k1", "ntt_k2", "poseidon2_grind")
+ZK_STRAY = KECCAK_KERNELS + ("poseidon2_duplex_chain",)
+# the kernels of the batch proof under the keccak config: the tree
+# injects the shorter instances' matrices by `compress_kernel` (the host
+# transcript hashes and grinds on the host)
+BATCH_PATH = ("ntt_k1", "ntt_k2", "keccak_sponge", "keccak_compress",
+              "keccak_ladder")
+
+
+def _zk_config(params, seed, device):
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.stark.config import zk_stark_config
+
+    return zk_stark_config(F, E, params, seed=seed, device=device)
+
+
+def _bump_random_opening(proof, E):
+    ov = proof.opened_values
+    ov.random[0] = E.add_h(ov.random[0], E.one_h())
+
+
+def _bump_salt(proof, E):
+    """The last salt word of the trace round's first opened row."""
+    row = proof.opening_proof.input_openings[1].opened_values[0][0]
+    row[-1] = (row[-1] + 1) % E.base.P
+
+
+def rejected(what, fn, prefixes):
+    """fn() must raise VerificationError with a message that starts with
+    one of `prefixes`: {raised, message, s}."""
+    from plonky3_tpu_torch.stark.verifier import VerificationError
+
+    t0 = time.perf_counter()
+    try:
+        fn()
+    except VerificationError as e:
+        if not str(e).startswith(prefixes):
+            raise AssertionError(f"{what}: rejected as {e}") from e
+        return {"raised": type(e).__name__, "message": str(e)[:120],
+                "s": time.perf_counter() - t0}
+    raise AssertionError(f"verify accepted the probe {what}")
+
+
+def phase_zk_small(torch, np):
+    """zk_stark_config at 2^8 rows (SMALL_BLOWUP4_PARAMS): FibonacciAir
+    and KeccakAir (10 permutations) proven on the card equal to the same
+    on the CPU (seed 1), every proof verified; seed 2 gives other trace,
+    quotient and R roots; a changed random opening is rejected;
+    Poseidon2VectorAir, whose own fold takes its width alone, raises
+    ValueError."""
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark.prover import prove
+    from plonky3_tpu_torch.stark.verifier import verify
+
+    params = FriParameters(**SMALL_BLOWUP4_PARAMS)
+    secs, out = {}, {}
+    for name, kw in (("fibonacci", {"log_n": 8}), ("keccak", {"perms": 10})):
+        proofs = {}
+        for dev in ("cuda", "cpu"):
+            air, trace, publics = _air_workload(np, name, dev, **kw)
+            t0 = time.perf_counter()
+            proofs[dev] = prove(_zk_config(params, 1, dev), air, trace,
+                                publics)
+            torch.cuda.synchronize()
+            secs[f"{name}_{dev}_s"] = time.perf_counter() - t0
+            verify(_zk_config(params, 1, dev), air, proofs[dev], publics)
+        proof = proofs["cpu"]
+        if as_plain(proofs["cuda"]) != as_plain(proof):
+            raise AssertionError(f"the ZK {name} proofs differ")
+        air, trace, publics = _air_workload(np, name, "cuda", **kw)
+        other = prove(_zk_config(params, 2, "cuda"), air, trace, publics)
+        for root in ("trace", "quotient_chunks", "random"):
+            if getattr(other.commitments, root) == getattr(
+                    proof.commitments, root):
+                raise AssertionError(f"seeds 1 and 2: one {root} root")
+        bad = copy.deepcopy(proof)
+        _bump_random_opening(bad, E)
+        out[name] = {
+            "rows": trace.shape[0], "width": air.width,
+            "degree_bits": proof.degree_bits,
+            "random_opening": rejected(
+                "random_opening", lambda: verify(
+                    _zk_config(params, 1, "cuda"), air, bad, publics),
+                ("InvalidOpeningArgument", "OodEvaluationMismatch"))}
+    _, air, trace = _workload(np, 8, params, "cuda")
+    try:
+        prove(_zk_config(params, 1, "cuda"), air, trace, [])
+    except ValueError as e:
+        own_fold = str(e)
+    else:
+        raise AssertionError("Poseidon2VectorAir proved under ZK")
+    emit({"phase": "zk_small", "cuda_equals_cpu": True,
+          "seeds_differ": True, **out,
+          "poseidon2_vector_air_raises": own_fold, **secs})
+
+
+def phase_zk_air(torch, np, kernels, card):
+    """The keccak-f-permutations objective under zk_stark_config at full
+    width: KeccakAir, 5,461 permutations, 2^17 x 2,633, randomized to
+    2^18 x 2,634 and committed at 2^20 rows with salts (BLOWUP4_PARAMS:
+    8 quotient chunks over 2^20 rows), prove() (the host transcript; the
+    fast prover covers no ZK PCS). A cold prove with spans (the host's random
+    draw and its conversion on the card among them) and peak memory, two
+    warm proves (the second with per-launch events and spans); the three
+    proofs from seed 1 equal; launches of one warm prove (K1, K2, the
+    duplex grind, no keccak kernel); the port's verifier accepts the
+    proof and rejects a changed opened trace value, random opening and
+    salt word. Returns launches and per-proof bounds."""
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark.prover import FOLD_BLOCKS, prove
+    from plonky3_tpu_torch.stark.verifier import verify
+
+    log_n = 17
+    perms = (1 << log_n) // 24
+    t0 = time.perf_counter()
+    air, trace, _ = _air_workload(np, "keccak", "cuda", perms=perms)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    params = FriParameters(**BLOWUP4_PARAMS)
+
+    def run(spans=None):
+        t0 = time.perf_counter()
+        proof = prove(_zk_config(params, 1, "cuda"), air, trace, [],
+                      spans=spans)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    cold_spans = {}
+    first, cold_s = run(cold_spans)
+    peak_mem = torch.cuda.max_memory_allocated()
+    kernels.reset_launches()
+    blocks = FOLD_BLOCKS["count"]
+    proof, warm_s = run()
+    launches = dict(kernels.LAUNCHES)
+    blocks = FOLD_BLOCKS["count"] - blocks
+    missing = [k for k in ZK_PATH if launches[k] == 0]
+    launched = [k for k in ZK_STRAY if launches[k]]
+    if missing or launched:
+        raise AssertionError(f"zk_air prove: not launched {missing}, "
+                             f"launched {launched}")
+    warm_spans = {}
+    (traced, warm2_s), calls = recorded(torch, kernels,
+                                        lambda: run(warm_spans))
+    if not as_plain(first) == as_plain(proof) == as_plain(traced):
+        raise AssertionError("three ZK proves from one seed differ")
+    ov = proof.opened_values
+    if (proof.degree_bits != log_n + 1 or len(ov.trace_local) != air.width
+            or len(ov.quotient_chunks) != 8 or len(ov.random) != E.D):
+        raise AssertionError("the ZK proof has the wrong shape")
+    config = _zk_config(params, 1, "cuda")
+    t0 = time.perf_counter()
+    verify(config, air, proof, [])  # raises on a rejection
+    verify_s = time.perf_counter() - t0
+    tamper = {}
+    for name, change in (("trace_local", _bump_trace_value),
+                         ("random_opening", _bump_random_opening),
+                         ("salt", _bump_salt)):
+        bad = copy.deepcopy(proof)
+        change(bad, E)
+        tamper[name] = rejected(name, lambda: verify(config, air, bad, []),
+                                ("InvalidOpeningArgument",
+                                 "OodEvaluationMismatch"))
+    emit({"phase": "zk_air", "log_n": log_n, "rows": 1 << log_n,
+          "width": air.width, "perms": perms, "trace_gen_s": gen_s,
+          "cold_prove_s": cold_s, "warm_prove_s": [warm_s, warm2_s],
+          "perms_per_s": perms / warm_s, "peak_mem_bytes": peak_mem,
+          "fold_blocks": blocks, "fold_block_rows": FOLD_BLOCKS["rows"],
+          "launches": launches, "equal_proofs": 3,
+          "proof_bytes": proof.size_in_bytes(), "verify_s": verify_s,
+          "tamper": tamper, "host_cpu": host_cpu()})
+    emit({"phase": "zk_air_spans", "cold": cold_spans, "warm": warm_spans})
+    per_proof = launch_bounds(card, calls, [proof.opening_proof
+                                            .query_pow_witness])
+    emit({"phase": "zk_air_per_proof", "kernels": per_proof})
+    return dict(launches=launches, per_proof=per_proof, device_ms={})
+
+
+def _even_zero_air():
+    """EvenZeroAir (the reference's preprocessed test AIR): the main
+    column is zero wherever the fixed selector column (even rows) is
+    one."""
+    import numpy as np
+
+    from plonky3_tpu_torch.air.api import BaseAir
+
+    class EvenZeroAir(BaseAir):
+        width = 1
+        num_public_values = 0
+
+        def __init__(self, field):
+            self.field = field
+
+        def preprocessed_trace(self, log_n):
+            sel = np.zeros((1 << log_n, 1), dtype=np.uint32)
+            sel[::2, 0] = 1
+            return sel
+
+        def eval(self, b):
+            b.assert_zero(b.preprocessed.local[0] * b.main.local[0])
+
+    return EvenZeroAir
+
+
+def _even_zero_trace(np, F, log_n, bad=False):
+    t = np.random.default_rng(log_n).integers(1, F.P, size=(1 << log_n, 1),
+                                              dtype=np.uint32)
+    t[::2, 0] = 0
+    if bad:
+        t[2, 0] = 7  # breaks the selector's constraint
+    return F.to_monty_np(t).astype(np.int64)
+
+
+def phase_preprocessed(torch, np):
+    """Preprocessed columns under the keccak config: EvenZeroAir's setup
+    root and proof on the card equal the CPU's at 2^8 rows, verified;
+    then 2^20 rows with new_benchmark_high_arity(): setup, a cold and a
+    warm prove, verified, and a trace that breaks the constraint, proven
+    and rejected."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark import preprocessed as pre
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+
+    air = _even_zero_air()(F)
+    small = {}
+    for dev in ("cuda", "cpu"):
+        cfg = keccak_stark_config(F, E, FriParameters(**SMALL_PARAMS),
+                                  device=dev)
+        setup = pre.setup_preprocessed(cfg, air, 8)
+        proof = pre.prove_with_preprocessed(cfg, air, torch.from_numpy(
+            _even_zero_trace(np, F, 8)).to(dev), [], setup)
+        pre.verify_with_preprocessed(cfg, air, proof, [], setup.root, 1)
+        small[dev] = (setup.root, as_plain(proof))
+    if small["cuda"] != small["cpu"]:
+        raise AssertionError("the preprocessed proofs differ")
+    log_n = 20
+    cfg = keccak_stark_config(F, E, FriParameters.new_benchmark_high_arity(),
+                              device="cuda")
+    t0 = time.perf_counter()
+    setup = pre.setup_preprocessed(cfg, air, log_n)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    out = {}
+    for name, bad in (("cold", False), ("warm", False), ("bad", True)):
+        trace = torch.from_numpy(_even_zero_trace(np, F, log_n,
+                                                  bad)).cuda()
+        t0 = time.perf_counter()
+        proof = pre.prove_with_preprocessed(cfg, air, trace, [], setup)
+        torch.cuda.synchronize()
+        out[f"{name}_prove_s"] = time.perf_counter() - t0
+
+        def check():
+            pre.verify_with_preprocessed(cfg, air, proof, [], setup.root, 1)
+
+        if bad:
+            out["bad_trace"] = rejected("bad trace", check,
+                                        ("OodEvaluationMismatch",))
+        else:
+            t0 = time.perf_counter()
+            check()
+            out[f"{name}_verify_s"] = time.perf_counter() - t0
+    emit({"phase": "preprocessed", "small_rows": 256,
+          "cuda_equals_cpu": True, "log_n": log_n, "setup_s": setup_s,
+          **out})
+
+
+def _range_check_air():
+    """RangeCheckAir (the reference's lookup test AIR): the table column
+    counts 0..n-1; the lookup proves every looked-up value lies in it."""
+    from plonky3_tpu_torch.air.api import BaseAir
+
+    class RangeCheckAir(BaseAir):
+        width = 4  # a, m_a, b, m_b
+        num_public_values = 0
+
+        def __init__(self, field):
+            self.field = field
+
+        def eval(self, bld):
+            local, nxt = bld.main.local, bld.main.next
+            bld.when_first_row().assert_zero(local[2])
+            bld.when_transition().assert_eq(nxt[2], local[2] + 1)
+
+    return RangeCheckAir
+
+
+def _range_check_trace(np, F, log_n, unbalanced=False):
+    n = 1 << log_n
+    a = np.random.default_rng(log_n).integers(0, n, size=n)
+    t = np.zeros((n, 4), dtype=np.uint32)
+    t[:, 0], t[:, 1], t[:, 2] = a, 1, np.arange(n)
+    t[:, 3] = np.bincount(a, minlength=n)
+    if unbalanced:
+        t[3, 0] = (t[3, 0] + 1) % n
+    return F.to_monty_np(t).astype(np.int64)
+
+
+def phase_lookup(torch, np):
+    """The LogUp lookup under the keccak config: RangeCheckAir at 2^8
+    rows, the permutation trace (for one beta) and the proof and its
+    permutation root on the card equal the CPU's, verified; at 2^20 rows
+    with BLOWUP4_PARAMS a cold and a warm prove, verified, and an
+    unbalanced trace refused; the permutation trace at 2^20 rows with the
+    norms' inverse by `batch_inv` (the prover's) and by Fermat: the same
+    words, each timed by CUDA events."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark import lookup
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+
+    air = _range_check_air()(F)
+    cols = lookup.LookupColumns(a=0, m_a=1, b=2, m_b=3)
+    beta = (5, 6, 7, 8)
+    small = {}
+    for dev in ("cuda", "cpu"):
+        trace = torch.from_numpy(_range_check_trace(np, F, 8)).to(dev)
+        cfg = keccak_stark_config(F, E, FriParameters(
+            **SMALL_BLOWUP4_PARAMS), device=dev)
+        perm = lookup.build_permutation_trace(E, trace, cols, beta)
+        proof, root = lookup.prove_with_lookup(cfg, air, trace, [], cols)
+        lookup.verify_with_lookup(cfg, air, proof, root, [], cols)
+        small[dev] = (perm.cpu(), root, as_plain(proof))
+    if not (torch.equal(small["cuda"][0], small["cpu"][0])
+            and small["cuda"][1:] == small["cpu"][1:]):
+        raise AssertionError("the lookup proofs differ")
+    log_n = 20
+    cfg = keccak_stark_config(F, E, FriParameters(**BLOWUP4_PARAMS),
+                              device="cuda")
+    trace = torch.from_numpy(_range_check_trace(np, F, log_n)).cuda()
+    out = {}
+    for name in ("cold", "warm"):
+        t0 = time.perf_counter()
+        proof, root = lookup.prove_with_lookup(cfg, air, trace, [], cols)
+        torch.cuda.synchronize()
+        out[f"{name}_prove_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lookup.verify_with_lookup(cfg, air, proof, root, [], cols)
+    out["verify_s"] = time.perf_counter() - t0
+    perm = {}
+    for name, inv in (("batch_inv", F.batch_inv), ("fermat", F.inv)):
+        perm[name] = lookup.build_permutation_trace(E, trace, cols, beta,
+                                                    base_inv=inv)
+        out[f"permutation_trace_{name}_ms"] = events_ms(
+            torch, lambda: lookup.build_permutation_trace(
+                E, trace, cols, beta, base_inv=inv), 5)
+    if not torch.equal(perm["batch_inv"], perm["fermat"]):
+        raise AssertionError("batch_inv and Fermat permutation traces "
+                             "differ")
+    bad = torch.from_numpy(_range_check_trace(np, F, log_n, True)).cuda()
+    try:
+        lookup.prove_with_lookup(cfg, air, bad, [], cols)
+    except ValueError as e:
+        out["unbalanced"] = str(e)
+    else:
+        raise AssertionError("an unbalanced lookup was proven")
+    emit({"phase": "lookup", "small_rows": 256, "cuda_equals_cpu": True,
+          "log_n": log_n, **out})
+
+
+def _batch_instances(np, device, log_p2, keccak_perms, log_fib,
+                     params=None):
+    """Poseidon2VectorAir(KoalaBear, 16, 8) at 2^log_p2 rows (the main
+    path's inputs), KeccakAir over `keccak_perms` permutations and
+    FibonacciAir at 2^log_fib rows, as BatchInstances."""
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark.batch import BatchInstance
+
+    _, p2, p2_trace = _workload(np, log_p2,
+                                params or FriParameters(**SMALL_PARAMS),
+                                device)
+    return [BatchInstance(p2, p2_trace, []),
+            BatchInstance(*_air_workload(np, "keccak", device,
+                                         perms=keccak_perms)),
+            BatchInstance(*_air_workload(np, "fibonacci", device,
+                                         log_n=log_fib))]
+
+
+def phase_batch(torch, np, kernels, card):
+    """The lookup-free batch STARK: at 2^8-scale heights (2^8, 2^7 and
+    2^4 rows) the batch proof on the card equals the CPU's under the
+    keccak and the Poseidon2 config, verified; then under the keccak
+    config one commitment of Poseidon2VectorAir(KoalaBear, 16, 8) at
+    2^17 x 1,312 (bench.py's trace), KeccakAir at 2^16 x 2,633 and
+    FibonacciAir at 2^10, new_benchmark_high_arity(): a cold and a warm
+    prove with the launches of the warm one (compress_kernel for the
+    injected heights among them), a third with per-launch events, all
+    equal, verified. Returns launches and per-proof bounds."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark import batch, config as stark_config
+
+    secs = {}
+    for kind in ("keccak", "poseidon2"):
+        proofs = {}
+        for dev in ("cuda", "cpu"):
+            inst = _batch_instances(np, dev, 8, 5, 4)
+            cfg = getattr(stark_config, f"{kind}_stark_config")(
+                F, E, FriParameters(**SMALL_PARAMS), device=dev)
+            t0 = time.perf_counter()
+            proof = batch.prove_batch(cfg, inst)
+            torch.cuda.synchronize()
+            secs[f"small_{kind}_{dev}_s"] = time.perf_counter() - t0
+            batch.verify_batch(cfg, [i.air for i in inst], proof,
+                               [i.public_values for i in inst])
+            proofs[dev] = as_plain(proof)
+        if proofs["cuda"] != proofs["cpu"]:
+            raise AssertionError(f"the small {kind} batch proofs differ")
+    params = FriParameters.new_benchmark_high_arity()
+    inst = _batch_instances(np, "cuda", 17, (1 << 16) // 24, 10, params)
+    heights = [list(i.trace.shape) for i in inst]
+    cfg = stark_config.keccak_stark_config(F, E, params, device="cuda")
+
+    def run():
+        t0 = time.perf_counter()
+        proof = batch.prove_batch(cfg, inst)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    first, cold_s = run()
+    peak_mem = torch.cuda.max_memory_allocated()
+    kernels.reset_launches()
+    proof, warm_s = run()
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k in BATCH_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"batch prove: not launched {missing}")
+    (traced, _), calls = recorded(torch, kernels, run)
+    if not as_plain(first) == as_plain(proof) == as_plain(traced):
+        raise AssertionError("three batch proves differ")
+    t0 = time.perf_counter()
+    batch.verify_batch(cfg, [i.air for i in inst], proof,
+                       [i.public_values for i in inst])
+    verify_s = time.perf_counter() - t0
+    emit({"phase": "batch", "small_cuda_equals_cpu": True, **secs,
+          "shapes": heights, "degree_bits": proof.degree_bits,
+          "cold_prove_s": cold_s, "warm_prove_s": warm_s,
+          "peak_mem_bytes": peak_mem, "launches": launches,
+          "verify_s": verify_s, "equal_proofs": 3})
+    per_proof = launch_bounds(card, calls)
+    emit({"phase": "batch_per_proof", "kernels": per_proof})
+    return dict(launches=launches, per_proof=per_proof, device_ms={})
+
+
 def host_cpu() -> str:
     """The first CPU's model name with its vendor, family, model and
     clock from /proc/cpuinfo (where the name reads "unknown", family
@@ -2586,6 +3102,7 @@ def main(argv=None) -> int:
     timed("sha256_air_small", phase_sha256_air_small, torch, np)
     timed("poseidon1_small", phase_poseidon1_small, torch, np)
     timed("m15_small", phase_m15_small, torch, np)
+    timed("zk_small", phase_zk_small, torch, np)
     full = timed("full", phase_full, torch, np, kernels, card)
     fast = timed("fast", phase_fast, torch, np, kernels, card, full)
     p2 = timed("poseidon2", phase_poseidon2, torch, np, kernels, card)
@@ -2601,6 +3118,10 @@ def main(argv=None) -> int:
     p1p2 = timed("poseidon1_poseidon2", phase_poseidon1, torch, np, kernels,
                  card, "poseidon2")
     sha = timed("sha256_air", phase_sha256_air, torch, np, kernels, card)
+    zk = timed("zk_air", phase_zk_air, torch, np, kernels, card)
+    timed("preprocessed", phase_preprocessed, torch, np)
+    timed("lookup", phase_lookup, torch, np)
+    bt = timed("batch", phase_batch, torch, np, kernels, card)
     # launches, proof_* : the main path (the fast prover) of the kernel's
     # config, keccak or (the duplex transcript's kernels) Poseidon2, and
     # for BabyBear's duplex kernels (<21, 7>, `*_babybear`) the BabyBear
@@ -2612,7 +3133,10 @@ def main(argv=None) -> int:
     # x 7,728) and the Poseidon1 path (2^17 x 1,312), keccak config;
     # *_babybear_poseidon2: the NTT kernels on the BabyBear Poseidon2 path;
     # *_poseidon1_poseidon2: the NTT kernels and the <23, 3> duplex kernels
-    # on the Poseidon1 path's Poseidon2 config. proof_ms: the kernel's
+    # on the Poseidon1 path's Poseidon2 config; *_zk_air: K1, K2 and the
+    # <23, 3> grind on the ZK KeccakAir path (prove(), zk_stark_config);
+    # *_batch: the keccak kernels, K1 and K2 in the batch proof (keccak
+    # config; compress_kernel's only per-proof line). proof_ms: the kernel's
     # launches of one prove timed by CUDA events; proof_profiled_ms: by
     # torch.profiler, where it recorded every launch. Every per-proof
     # share goes through share().
@@ -2638,6 +3162,11 @@ def main(argv=None) -> int:
             for key, got in (("_keccak_air", kair), ("_blake3_air", b3),
                              ("_babybear", bb), ("_sha256_air", sha),
                              ("_poseidon1", p1)):
+                paths.append((key, got))
+                rec[f"launches{key}"] = got["launches"][name]
+        for key, got, path in (("_zk_air", zk, ZK_PATH),
+                               ("_batch", bt, BATCH_PATH)):
+            if name in path:
                 paths.append((key, got))
                 rec[f"launches{key}"] = got["launches"][name]
         rec["launches"] = main["launches"][name]

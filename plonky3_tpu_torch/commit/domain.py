@@ -65,6 +65,12 @@ class TwoAdicCoset:
         return [evals[c::num_chunks] for c in range(num_chunks)]
 
     # ---- host (verifier) values at one point --------------------------
+    def vanishing_poly_at_point_h(self, x: int) -> int:
+        """Z(x) for a base-field point (standard form)."""
+        F = self.F
+        return (F.exp_h(F.mul_h(F.inv_h(self.shift), x), self.size)
+                - 1) % F.P
+
     def vanishing_poly_at_point_ext(self, E, point):
         sp = E.base_mul_h(self.F.inv_h(self.shift), point)
         return E.sub_h(E.exp_h(sp, self.size), E.one_h())

@@ -175,11 +175,13 @@ class BinomialExtension:
                   for i in range(self.D)]
         return F.mul(a, torch.tensor(scales, dtype=a.dtype, device=a.device))
 
-    def inv(self, a):
-        """Elementwise inverse via the Frobenius norm; 0 maps to 0."""
+    def inv(self, a, base_inv=None):
+        """Elementwise inverse via the Frobenius norm; 0 maps to 0. The
+        norm's base-field inverse is `base_inv` (default the Fermat
+        inverse `base.inv`; `base.batch_inv` gives the same bits)."""
         conj, prod = a, None
         for _ in range(self.D - 1):
             conj = self.frobenius(conj)
             prod = conj if prod is None else self.mul(prod, conj)
         norm = self.mul(a, prod)[..., 0]
-        return self.base_mul(self.base.inv(norm), prod)
+        return self.base_mul((base_inv or self.base.inv)(norm), prod)

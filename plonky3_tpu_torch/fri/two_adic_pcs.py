@@ -94,20 +94,21 @@ class TwoAdicFriPcs:
         return TwoAdicCoset(self.F, 1, log2_strict(degree))
 
     def commit(self, evaluations):
-        """evaluations: [(TwoAdicCoset, (n, w) natural-order tensor)]."""
-        ldes, coeffs = [], []
-        for domain, evals in evaluations:
-            if evals.shape[0] != domain.size:
-                raise ValueError("evaluations do not match their domain")
-            shift = self.F.mul_h(self.F.GENERATOR,
-                                 self.F.inv_h(domain.shift))
-            lde, cf = coset_lde_batch(self.F, evals, self.fri.log_blowup,
-                                      shift, with_coeffs=True)
-            ldes.append(lde)
-            coeffs.append(cf)
-        data = self.mmcs.commit(ldes)
-        data.coeffs = coeffs
+        """evaluations: an iterable of (TwoAdicCoset, (n, w) natural-order
+        tensor); each is let go once its LDE is taken."""
+        ldes, coeffs = zip(*[self._lde(domain, evals)
+                             for domain, evals in evaluations])
+        data = self.mmcs.commit(list(ldes))
+        data.coeffs = list(coeffs)
         return data
+
+    def _lde(self, domain, evals):
+        """(the bit-reversed LDE over gK, the scaled coefficients)."""
+        if evals.shape[0] != domain.size:
+            raise ValueError("evaluations do not match their domain")
+        shift = self.F.mul_h(self.F.GENERATOR, self.F.inv_h(domain.shift))
+        return coset_lde_batch(self.F, evals, self.fri.log_blowup, shift,
+                               with_coeffs=True)
 
     def get_evaluations_on_domain(self, data, mat_index: int,
                                   domain: TwoAdicCoset,
@@ -118,6 +119,10 @@ class TwoAdicFriPcs:
         lde = data.matrices[mat_index]
         if domain.shift != self.F.GENERATOR:
             raise ValueError("the domain must share the shift gK")
+        if domain.size > lde.shape[0]:
+            raise ValueError(f"a domain of {domain.size} rows exceeds the "
+                             f"committed LDE's {lde.shape[0]}: the "
+                             f"quotient needs a larger blowup")
         prefix = lde[:domain.size]
         if order == "bitrev":
             return prefix
@@ -183,7 +188,8 @@ class TwoAdicFriPcs:
         reduced, num_reduced = {}, {}
         for (data, points), round_vals in zip(data_with_points,
                                               opened_values):
-            for mat, pts, mat_vals in zip(data.matrices, points, round_vals):
+            for mat, pts, mat_vals in zip(data.poly_matrices(), points,
+                                          round_vals):
                 h, w = mat.shape
                 log_h = log2_strict(h)
                 alpha_pows = E.powers_np(alpha, w)  # (w, D)

@@ -53,6 +53,17 @@ class MerkleProverData:
     # cap_height levels below the root; (root_std,) for cap height 0
     cap_std: tuple = None
     coeffs: list = None  # scaled interpolant coefficients (set by the PCS)
+    # the hiding MMCS's salt columns at the end of every matrix
+    salt_elems: int = 0
+    # the hiding PCS's random codeword columns precede the salts
+    zk_randomized: bool = False
+
+    def poly_matrices(self):
+        """The committed matrices without their salt columns: the columns
+        the polynomials fill (the reference's `_poly_mats`)."""
+        if not self.salt_elems:
+            return self.matrices
+        return [m[:, :m.shape[1] - self.salt_elems] for m in self.matrices]
 
     @property
     def commitment(self):

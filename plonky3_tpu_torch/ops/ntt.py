@@ -77,15 +77,20 @@ def _dif_plain(F, x, log_n: int, inverse: bool):
 
 def _dif(F, x, log_n: int, inverse: bool, zero_top: bool = False):
     """DIF along axis 0 of an int64 (n, ...) tensor through the kernel
-    wrapper (n/2 rows with zero_top: the upper half is an implicit zero
-    pad)."""
+    wrapper. With zero_top the upper half is an implicit zero pad: x has
+    at most n/2 rows, zero-padded to n/2 in the kernel's int32 words."""
     from .ntt_cuda import dif_fused
 
     if log_n == 0:
         return x
     rest = x.shape[1:]
-    flat = x.reshape(x.shape[0], -1).to(torch.int32).contiguous()
-    out = dif_fused(F, flat, log_n, inverse, zero_top)
+    words = x.reshape(x.shape[0], -1).to(torch.int32).contiguous()
+    half = (1 << log_n) >> 1
+    if zero_top and words.shape[0] < half:
+        words = torch.cat([words, words.new_zeros(
+            (half - words.shape[0], words.shape[1]))])
+    out = dif_fused(F, words, log_n, inverse, zero_top)
+    del words  # the int32 input goes before the int64 output comes
     return out.to(torch.int64).reshape((1 << log_n,) + rest)
 
 
@@ -114,16 +119,7 @@ def coset_lde_batch(F, mat, added_bits: int, shift_std: int,
     coeffs = bitrev_permute_axis0(_dif(F, mat, log_n, inverse=True), log_n)
     sp = powers_device(F, shift_std, n, mat.device, scale_std=F.inv_h(n))
     coeffs = F.mul(coeffs, sp.reshape((n,) + (1,) * (mat.dim() - 1)))
-    if added_bits == 0:
-        out = _dif(F, coeffs, log_N, inverse=False)
-    else:
-        half = N >> 1
-        padded = coeffs
-        if n < half:
-            pad = torch.zeros((half - n,) + tuple(mat.shape[1:]),
-                              dtype=coeffs.dtype, device=coeffs.device)
-            padded = torch.cat([coeffs, pad], dim=0)
-        out = _dif(F, padded, log_N, inverse=False, zero_top=True)
+    out = _dif(F, coeffs, log_N, inverse=False, zero_top=added_bits > 0)
     if out_order == "natural":
         out = bitrev_permute_axis0(out, log_N)
     if with_coeffs:

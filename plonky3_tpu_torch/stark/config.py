@@ -1,24 +1,28 @@
-"""StarkConfig (uni-stark/src/config.rs:24,49) and the two benchmark
-configs of the reference (examples/src/types.rs:19-62), ported from
-`plonky3_tpu/stark/config.py`."""
+"""StarkConfig (uni-stark/src/config.rs:24,49), the two benchmark
+configs of the reference (examples/src/types.rs:19-62) and its ZK config,
+ported from `plonky3_tpu/stark/config.py`."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
+
 from .. import default_device
 from ..fri.config import FriParameters
+from ..fri.hiding_pcs import HidingFriPcs
 from ..fri.two_adic_pcs import TwoAdicFriPcs
 from ..hashes.keccak_sponge import KeccakCompressor, KeccakFieldSponge
 from ..hashes.poseidon2 import default_poseidon2
 from ..hashes.sponge import PaddingFreeSponge, TruncatedPermutation
 from ..merkle.extension_mmcs import ExtensionMmcs
+from ..merkle.hiding_mmcs import MerkleTreeHidingMmcs
 from ..merkle.mmcs import MerkleTreeMmcs
 
 
 @dataclass(frozen=True)
 class StarkConfig:
-    pcs: TwoAdicFriPcs
+    pcs: TwoAdicFriPcs  # or HidingFriPcs
     device: object  # torch.device the config proves on
     # the Fiat-Shamir transcript: "duplex" (DuplexChallenger over
     # Poseidon2-24, field digests) or "keccak" (SerializingChallenger32
@@ -76,3 +80,27 @@ def keccak_stark_config(F, E, fri_params: FriParameters,
                           compressor=KeccakCompressor(),
                           cap_height=cap_height)
     return _config(F, E, fri_params, mmcs, device, "keccak")
+
+
+def zk_stark_config(F, E, fri_params: FriParameters, seed: int = 0,
+                    salt_elems: int = 4, num_random_codewords: int = 1,
+                    device=None) -> StarkConfig:
+    """The ZK config (fib_air.rs make_zk_config): the Poseidon2 Merkle
+    config's hashes and transcript, a hiding MMCS (salted leaves) for the
+    committed matrices and HidingFriPcs (random rows and codewords, the
+    masked quotient, the batch's blinding R), on `device` (default cuda).
+    The FRI rounds commit through the plain MMCS. One Generator, seeded
+    by `seed`, serves the MMCS and the PCS, so a config's proofs follow
+    one random stream: two proofs from one seed need two configs."""
+    rng = np.random.default_rng(seed)
+    base = MerkleTreeMmcs(
+        sponge=PaddingFreeSponge(default_poseidon2(F, 24), rate=16, out=8),
+        compressor=TruncatedPermutation(default_poseidon2(F, 16), chunk=8))
+    inner = TwoAdicFriPcs(
+        F=F, E=E, fri=fri_params,
+        mmcs=MerkleTreeHidingMmcs(inner=base, salt_elems=salt_elems,
+                                  rng=rng),
+        fri_mmcs=ExtensionMmcs(inner=base, D=E.D))
+    pcs = HidingFriPcs(inner=inner,
+                       num_random_codewords=num_random_codewords, rng=rng)
+    return StarkConfig(pcs=pcs, device=default_device(device))

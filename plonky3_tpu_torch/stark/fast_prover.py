@@ -27,8 +27,8 @@ JAX package replays the transcript with a host C keccak or Poseidon2
 that the port does not have (its host hashes are Python and numpy). With
 no host replay between the two bodies, one copy at the end serves both.
 
-`_prove_device_fs` raises `_Unsupported` where the reference does: a
-matrix shorter than the Merkle cap, and the (cryptographically
+`_prove_device_fs` raises `_Unsupported` where the reference does: a ZK
+PCS, a matrix shorter than the Merkle cap, and the (cryptographically
 negligible) event that a device flag trips. `prove_fast` then falls back
 to `prove` for a CPU trace only: on the card the error reaches the
 caller, so the transcript never moves to the host unseen.
@@ -230,7 +230,8 @@ def _device_body_p1(config, air, trace, publics_m, meta, mark):
     ap_log = max(1, (num_constraints - 1).bit_length())
     alpha_pows = _ext_powers_device(E, alpha_m, ap_log)[
         :num_constraints].flip(0)
-    q_vals = quotient_of_commitment(config, air, trace_data, trace_domain,
+    q_vals = quotient_of_commitment(config, air, [(trace_data, 0)],
+                                    trace_domain,
                                     quotient_domain, publics_m, alpha_pows)
     mark("quotient eval")
     sub_evals = quotient_domain.split_evals(num_chunks, q_vals)
@@ -401,7 +402,8 @@ def _prove_device_fs(config, air, trace, public_values, spans=None):
     scope (see prove_fast). spans: as in prover.prove."""
     F, E, pcs = config.F, config.E, config.pcs
     if getattr(pcs, "ZK", False):
-        raise NotImplementedError("ZK proofs come with ROADMAP M16")
+        # as the reference's (stark/fast_prover.py:593-594)
+        raise _Unsupported("the fast path covers the non-ZK TwoAdicFriPcs")
     params = pcs.fri
     if trace.device.type != config.device.type:
         raise ValueError(f"trace on {trace.device}, config on "

@@ -1,5 +1,6 @@
 """uni-stark prover with the host transcript (uni-stark/src/prover.rs:24,
-379; no ZK). Port of `plonky3_tpu/stark/prover.py`.
+379). Port of `plonky3_tpu/stark/prover.py`; under a ZK PCS `prove` runs
+`stark/zk.py::prove_zk`.
 
 Transcript order (prover.rs:159-173,216,255,299): observe log_ext_degree,
 log_degree, preprocessed width; the trace commitment; the public values;
@@ -173,6 +174,11 @@ def _quotient(config, air, trace_domain, quotient_domain, rows, rows_order,
         # the rolled copy of the rows is not built
         if rows_order != fold_order:
             raise ValueError("an AIR's own fold takes rows in its order")
+        if rows.shape[1] != air.width:
+            # the ZK rows carry a random codeword column and salts
+            raise ValueError(
+                f"{type(air).__name__}'s own fold reads {air.width} "
+                f"columns, the rows have {rows.shape[1]}")
         folded = air.fold_constraints_device(F, E, rows, None, sels,
                                              publics_m, alpha_pows)
     else:
@@ -248,24 +254,42 @@ def _fold_block(F, E, air, cols, step, sels, periodic, publics_m,
     return backend.finalize((nb,))
 
 
-def quotient_of_commitment(config: StarkConfig, air: BaseAir, trace_data,
+def quotient_of_commitment(config: StarkConfig, air: BaseAir, parts,
                            trace_domain, quotient_domain, publics_m,
                            alpha_pows):
-    """The prover's natural-order quotient (Nq, D) from the committed
-    trace: straight from the committed bit-reversed LDE where the PCS
-    lays it out so (`supports_bitrev_evals`, the reference's gate,
-    stark/prover.py:205-211), else from its natural-order evaluations."""
+    """The prover's natural-order quotient (Nq, D) from committed
+    matrices: parts [(prover data, matrix index)], whose evaluations side
+    by side are the AIR's rows (the trace; with a preprocessed or a
+    permutation trace after it). Straight from the committed bit-reversed
+    LDEs where the PCS lays them out so (`supports_bitrev_evals`, the
+    reference's gate, stark/prover.py:205-211), else from their
+    natural-order evaluations."""
     pcs = config.pcs
-    if getattr(pcs, "supports_bitrev_evals", False):
-        prefix = pcs.get_evaluations_on_domain(trace_data, 0,
-                                               quotient_domain,
-                                               order="bitrev")
+    bitrev = getattr(pcs, "supports_bitrev_evals", False)
+    kw = {"order": "bitrev"} if bitrev else {}
+    rows = [pcs.get_evaluations_on_domain(data, i, quotient_domain, **kw)
+            for data, i in parts]
+    rows = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+    if bitrev:
         return committed_quotient(config, air, trace_domain,
-                                  quotient_domain, prefix, publics_m,
+                                  quotient_domain, rows, publics_m,
                                   alpha_pows)
-    rows = pcs.get_evaluations_on_domain(trace_data, 0, quotient_domain)
     return quotient_values(config, air, trace_domain, quotient_domain, rows,
                            publics_m, alpha_pows)
+
+
+def publics_tensor(F, public_values, device):
+    """The public values as an int64 Montgomery tensor on `device`."""
+    return torch.from_numpy(F.to_monty_np(np.asarray(
+        public_values, dtype=np.uint32)).astype(np.int64)).to(device)
+
+
+def alpha_powers(E, air, alpha, device):
+    """[alpha^(K-1), ..., 1] for the K constraints of `air`, on `device`
+    (constraint i folds with alpha^(K-1-i))."""
+    num_constraints, _ = get_symbolic_layout(air)
+    return torch.from_numpy(E.powers_np(alpha, num_constraints)[::-1]
+                            .astype(np.int64)).to(device)
 
 
 def prove(config: StarkConfig, air: BaseAir, trace, public_values,
@@ -274,11 +298,13 @@ def prove(config: StarkConfig, air: BaseAir, trace, public_values,
     the config's device. spans: optional dict that collects wall-clock
     seconds per stage (the device is synchronized at each stage end)."""
     F, E, pcs = config.F, config.E, config.pcs
-    if getattr(pcs, "ZK", False):
-        raise NotImplementedError("ZK proofs come with ROADMAP M16")
     if trace.device.type != config.device.type:
         raise ValueError(f"trace on {trace.device}, config on "
                          f"{config.device}")
+    if getattr(pcs, "ZK", False):
+        from .zk import prove_zk
+
+        return prove_zk(config, air, trace, public_values, spans=spans)
     device = trace.device
     mark = stage_timer(spans, device)
     n = trace.shape[0]
@@ -299,13 +325,10 @@ def prove(config: StarkConfig, air: BaseAir, trace, public_values,
 
     quotient_domain = trace_domain.create_disjoint_domain(n * num_chunks)
     uses_next = air.main_next_row_columns() != []
-    num_constraints, _ = get_symbolic_layout(air)
-    alpha_pows = E.powers_np(alpha, num_constraints)[::-1].astype(np.int64)
-    publics_m = torch.from_numpy(F.to_monty_np(np.asarray(
-        public_values, dtype=np.uint32)).astype(np.int64)).to(device)
-    q_vals = quotient_of_commitment(config, air, trace_data, trace_domain,
-                                    quotient_domain, publics_m,
-                                    torch.from_numpy(alpha_pows).to(device))
+    q_vals = quotient_of_commitment(
+        config, air, [(trace_data, 0)], trace_domain, quotient_domain,
+        publics_tensor(F, public_values, device),
+        alpha_powers(E, air, alpha, device))
     mark("quotient eval")
 
     # ext values -> D base columns, split into chunks, commit

@@ -1,11 +1,12 @@
-"""uni-stark verifier (uni-stark/src/verifier.rs:273; no ZK).
+"""uni-stark verifier (uni-stark/src/verifier.rs:273).
 
 Port of `plonky3_tpu/stark/verifier.py`. It replays the prover's
 transcript, checks the proof's shape, runs the PCS verification, rebuilds
 the quotient at zeta from its chunks (recompose_quotient_from_chunks :98)
 and checks C_fold(zeta) / Z_H(zeta) == Q(zeta) (verify_constraints :142).
 
-The verifier runs on the host, as the reference's does: it takes a `Proof`
+Under a ZK PCS `verify` runs `stark/zk.py::verify_zk`. The verifier
+runs on the host, as the reference's does: it takes a `Proof`
 of Python ints, works on Python ints and numpy, and launches nothing.
 """
 
@@ -41,11 +42,58 @@ class OodEvaluationMismatch(VerificationError):
     """C_fold(zeta) / Z_H(zeta) != Q(zeta) (verifier.rs:197)."""
 
 
+def recompose_quotient(E, chunk_domains, chunks, zeta):
+    """Q(zeta) from its chunks' openings (verifier.rs:98): chunk i
+    weighted by the product over the other chunks' vanishing polynomials,
+    normalised at chunk i's first point; chunk[d] is Q's d-th basis
+    coordinate polynomial at zeta."""
+    quotient = E.zero_h()
+    for i, (dom, chunk) in enumerate(zip(chunk_domains, chunks)):
+        zp = E.one_h()
+        for j, other in enumerate(chunk_domains):
+            if j != i:
+                num = other.vanishing_poly_at_point_ext(E, zeta)
+                den = other.vanishing_poly_at_point_ext(
+                    E, E.from_base_h(dom.first_point()))
+                zp = E.mul_h(zp, E.mul_h(num, E.inv_h(den)))
+        val = E.zero_h()
+        for d, c in enumerate(chunk):
+            basis = [0] * E.D
+            basis[d] = 1
+            val = E.add_h(val, E.mul_h(c, tuple(basis)))
+        quotient = E.add_h(quotient, E.mul_h(zp, val))
+    return quotient
+
+
+def check_constraints_at_zeta(E, air, alpha, zeta, trace_domain,
+                              trace_local, trace_next, publics, quotient):
+    """C_fold(zeta)·Z_H(zeta)^-1 against the recomposed quotient, for the
+    ZK, preprocessed, lookup and batch verifiers (no periodic columns, as
+    theirs in the reference); raises VerificationError(
+    "OodEvaluationMismatch"). publics: extension tuples."""
+    sels = trace_domain.selectors_at_point_ext(E, zeta)
+    backend = VerifierBackend(E, alpha)
+
+    def entry(kind, j):
+        if kind == "local":
+            return trace_local[j]
+        if kind == "next":
+            return trace_next[j]
+        return sels[kind]
+
+    air.eval(_make_builder(backend, air.width, air.num_public_values,
+                           entry, lambda j: publics[j]))
+    if E.mul_h(backend.acc, sels["inv_vanishing"]) != quotient:
+        raise VerificationError("OodEvaluationMismatch")
+
+
 def verify(config: StarkConfig, air: BaseAir, proof: Proof, public_values):
     """Return None for an accepted proof; raise a VerificationError."""
     F, E, pcs = config.F, config.E, config.pcs
     if getattr(pcs, "ZK", False):
-        raise NotImplementedError("ZK proofs come with ROADMAP M16")
+        from .zk import verify_zk
+
+        return verify_zk(config, air, proof, public_values)
     log_n = proof.degree_bits
     if log_n > F.TWO_ADICITY - pcs.fri.log_blowup:
         raise InvalidProofShape("InvalidProofShape: degree too large")
@@ -96,26 +144,8 @@ def verify(config: StarkConfig, air: BaseAir, proof: Proof, public_values):
     except FriError as e:
         raise InvalidOpeningArgument(f"InvalidOpeningArgument: {e}") from e
 
-    # Q(zeta) from the chunks (verifier.rs:98): chunk i weighted by the
-    # product over the other chunks' vanishing polynomials, normalised at
-    # chunk i's first point
-    quotient = E.zero_h()
-    for i, (dom, chunk) in enumerate(zip(chunk_domains,
-                                         ov.quotient_chunks)):
-        zp = E.one_h()
-        for j, other in enumerate(chunk_domains):
-            if j != i:
-                num = other.vanishing_poly_at_point_ext(E, zeta)
-                den = other.vanishing_poly_at_point_ext(
-                    E, E.from_base_h(dom.first_point()))
-                zp = E.mul_h(zp, E.mul_h(num, E.inv_h(den)))
-        # chunk[d] is Q's d-th basis coordinate polynomial at zeta
-        val = E.zero_h()
-        for d, c in enumerate(chunk):
-            basis = [0] * E.D
-            basis[d] = 1
-            val = E.add_h(val, E.mul_h(c, tuple(basis)))
-        quotient = E.add_h(quotient, E.mul_h(zp, val))
+    quotient = recompose_quotient(E, chunk_domains, ov.quotient_chunks,
+                                  zeta)
 
     # the folded constraints at zeta (verify_constraints :142)
     sels = trace_domain.selectors_at_point_ext(E, zeta)

@@ -590,3 +590,69 @@ def test_poseidon1_and_mds_equal_cpu(cuda):
     x = torch.from_numpy(F.rand_np(rng, (64, 16)).astype(np.int64))
     assert torch.equal(coset.permute_device(x.to(cuda)).cpu(),
                        coset.permute_device(x))
+
+
+def test_zk_commit_and_proof_equal_cpu(cuda):
+    """Under zk_stark_config, HidingFriPcs.commit (random rows and
+    codewords, salts) and a FibonacciAir proof on the card equal the
+    CPU's from the same seed, and the port's verifier accepts it."""
+    from plonky3_tpu_torch.models.fibonacci import (FibonacciAir,
+                                                    generate_fibonacci_trace)
+    from plonky3_tpu_torch.stark.config import zk_stark_config
+    from plonky3_tpu_torch.stark.prover import prove
+    from plonky3_tpu_torch.stark.verifier import verify
+
+    mat = F.rand_np(np.random.default_rng(15), (64, 5)).astype(np.int64)
+    roots, proofs = [], []
+    for dev in (cuda, torch.device("cpu")):
+        pcs = zk_stark_config(F, E, _small_params(), seed=3,
+                              device=dev).pcs
+        data = pcs.commit([(pcs.natural_domain_for_degree(128),
+                            torch.from_numpy(mat).to(dev))])
+        roots.append((data.commitment,
+                      [m.cpu() for m in data.matrices]))
+        cfg = zk_stark_config(F, E, _small_params(), seed=4, device=dev)
+        trace, publics = generate_fibonacci_trace(F, 6, device=dev)
+        proof = prove(cfg, FibonacciAir(F), trace, publics)
+        verify(cfg, FibonacciAir(F), proof, publics)
+        proofs.append(proof)
+    assert roots[0][0] == roots[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(roots[0][1], roots[1][1]))
+    assert proofs[0] == proofs[1]
+
+
+@pytest.mark.parametrize("kind", ["keccak", "poseidon2"])
+def test_batch_commit_and_proof_equal_cpu(cuda, kind):
+    """prove_batch over FibonacciAir at 16 and 64 rows and
+    Poseidon2VectorAir(KoalaBear, 16, 1) at 8 rows (one mixed-height
+    commitment; under keccak the tree injects the shorter matrices
+    through compress_kernel) on the card equals the CPU's, and the port's
+    verifier accepts it."""
+    from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.compat import trace_inputs_from_numpy
+    from plonky3_tpu_torch.models.fibonacci import (FibonacciAir,
+                                                    generate_fibonacci_trace)
+    from plonky3_tpu_torch.models.poseidon2_air import (
+        Poseidon2VectorAir, generate_vectorized_trace)
+    from plonky3_tpu_torch.stark.batch import (BatchInstance, prove_batch,
+                                               verify_batch)
+
+    inputs = F.rand_np(np.random.default_rng(16), (8, 16))
+    proofs = []
+    for dev in (cuda, torch.device("cpu")):
+        p2 = Poseidon2VectorAir(F, 16, vector_len=1)
+        p2_trace, _ = generate_vectorized_trace(
+            p2, trace_inputs_from_numpy(inputs, dev), device=dev)
+        instances = [BatchInstance(p2, p2_trace, [])]
+        for log_n in (4, 6):
+            trace, publics = generate_fibonacci_trace(F, log_n, device=dev)
+            instances.append(BatchInstance(FibonacciAir(F), trace, publics))
+        cfg = _configs()[kind][0](F, E, _small_params(), device=dev)
+        kernels.reset_launches()
+        proof = prove_batch(cfg, instances)
+        if dev.type == "cuda" and kind == "keccak":
+            assert kernels.LAUNCHES["keccak_compress"] > 0
+        verify_batch(cfg, [i.air for i in instances], proof,
+                     [i.public_values for i in instances])
+        proofs.append(proof)
+    assert proofs[0] == proofs[1]
