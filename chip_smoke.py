@@ -192,7 +192,24 @@ Phases, each printed as one JSON line:
            Poseidon2VectorAir at 2^17 x 1,312, KeccakAir at 2^16 x 2,633
            and FibonacciAir at 2^10 (compress_kernel for the injected
            heights), cold, warm with its launches, verified, per-proof
-           bounds.
+           bounds;
+  batch_ref the canonical batch STARK (LogUp buses, a global
+           preprocessed column) under the Poseidon2 config over BabyBear:
+           the CLI's poseidon-2-permutations trace at 2^17 x 2,384 (no
+           bus), MulAirLookups at 2^20 x 7 and FibAirLookups at 2^20 on
+           the MulFib bus; keygen, a cold and a warm prove with spans, a
+           third with per-launch events, all equal, peak memory, launches
+           (K1, K2, the <21, 7> grind), verified, a changed terminal,
+           permutation value and trace value rejected, the proof through
+           the postcard wire and back;
+  interaction LogUp buses under the keccak config: 2^20 range queries
+           into a 2^16-row table with multiplicities and 2^18 pairs on a
+           permutation-check bus in one proof (compress_kernel for the
+           injected heights), cold, warm, a third with per-launch events,
+           equal, verified, an unbalanced table rejected;
+  serde    the babybear_poseidon2 proof through the postcard wire and
+           back; the canonical batch and the bus batch at 256 rows on
+           CUDA equal to the CPU, verified.
 Every profile checks that it recorded each of the port's kernels as many
 times as the prove launched it, and profiles again where it did not.
 Before the last line: one JSON object listing every kernel. The last line
@@ -1950,7 +1967,7 @@ def device_fs_phase(torch, kernels, card, phase, workload, path, stray,
     device_ms = profile_prove(torch, kernels, fp._prove_device_fs, config,
                               air, trace, fast_s, phase=f"{phase}_profile")
     return dict(launches=launches, per_proof=per_proof, device_ms=device_ms,
-                calls=calls, proof_bytes=proof.size_in_bytes())
+                calls=calls, proof_bytes=proof.size_in_bytes(), proof=proof)
 
 
 def phase_poseidon2(torch, np, kernels, card):
@@ -2904,6 +2921,368 @@ def phase_batch(torch, np, kernels, card):
     return dict(launches=launches, per_proof=per_proof, device_ms={})
 
 
+# ---- the rest of M17 and M18: buses, the canonical batch, the wire ----
+
+# the canonical batch proof under the Poseidon2 config over BabyBear: the
+# NTTs and the host transcript's <21, 7> grind on the card (the trees are
+# plain-torch Poseidon2)
+BATCH_REF_PATH = ("ntt_k1", "ntt_k2", "poseidon2_grind_babybear")
+BATCH_REF_STRAY = KECCAK_KERNELS + P2_KERNELS[:3]
+# the bus batch under the keccak config: the trees inject the shorter
+# instances' matrices by compress_kernel (the host transcript hashes and
+# grinds on the host)
+INTERACTION_PATH = BATCH_PATH
+INTERACTION_STRAY = ("keccak256_chain", "keccak_grind") + P2_KERNELS
+
+
+def _bus_airs():
+    """The bus test AIRs of the reference's interaction test (copies, as
+    `_range_check_air`): QueryAir looks its value up on the range bus,
+    TableAir provides 0..n-1 with multiplicities; SendAir and RecvAir
+    send and receive pairs on a permutation-check bus."""
+    from plonky3_tpu_torch.air.api import BaseAir
+    from plonky3_tpu_torch.stark.interaction import (LookupBus,
+                                                     PermutationCheckBus)
+
+    rng_bus, pipe = LookupBus("range16"), PermutationCheckBus("pipe")
+
+    class QueryAir(BaseAir):
+        width, num_public_values = 1, 0
+
+        def __init__(self, field):
+            self.field = field
+
+        def eval(self, b):
+            rng_bus.lookup_key(b, [b.main.local[0]], 1)
+
+    class TableAir(BaseAir):
+        width, num_public_values = 2, 0  # value, multiplicity
+
+        def __init__(self, field):
+            self.field = field
+
+        def eval(self, b):
+            local, nxt = b.main.local, b.main.next
+            b.when_first_row().assert_zero(local[0])
+            b.when_transition().assert_eq(nxt[0], local[0] + 1)
+            rng_bus.table_entry(b, [local[0]], local[1])
+
+    class SendAir(BaseAir):
+        width, num_public_values = 2, 0
+
+        def __init__(self, field):
+            self.field = field
+
+        def eval(self, b):
+            pipe.send(b, [b.main.local[0], b.main.local[1]], 1)
+
+    class RecvAir(BaseAir):
+        width, num_public_values = 2, 0
+
+        def __init__(self, field):
+            self.field = field
+
+        def eval(self, b):
+            pipe.receive(b, [b.main.local[0], b.main.local[1]], 1)
+
+    return QueryAir, TableAir, SendAir, RecvAir
+
+
+def _bus_instances(torch, np, F, device, log_q, log_t, log_p,
+                   unbalanced=False):
+    """BatchInstances: 2^log_q range queries below 2^log_t into the
+    2^log_t-row table (one multiplicity raised when `unbalanced`), and
+    2^log_p pairs sent and received in another order."""
+    from plonky3_tpu_torch.stark.batch import BatchInstance
+
+    rng = np.random.default_rng(log_q)
+    q = rng.integers(0, 1 << log_t, size=1 << log_q)
+    counts = np.bincount(q, minlength=1 << log_t)
+    if unbalanced:
+        counts[0] += 1
+    pairs = rng.integers(0, F.P, size=(1 << log_p, 2))
+    traces = [q.reshape(-1, 1), np.stack([np.arange(1 << log_t), counts], 1),
+              pairs, pairs[rng.permutation(1 << log_p)]]
+
+    def dev(t):
+        return torch.from_numpy(F.to_monty_np(t.astype(np.uint32))
+                                .astype(np.int64)).to(device)
+
+    return [BatchInstance(air(F), dev(t), [])
+            for air, t in zip(_bus_airs(), traces)]
+
+
+def _batch_ref_case(torch, np, device, log_p2, log_mul, params):
+    """(config, instances, public values) of the canonical batch: the
+    CLI's poseidon-2-permutations trace over BabyBear at 2^log_p2 rows
+    (`cli.build`, no bus), MulAirLookups(BabyBear, reps=2, global) at
+    2^log_mul x 7 and FibAirLookups at 2^log_mul with its preprocessed
+    index column, the last two on the shared MulFib bus;
+    poseidon2_stark_config(BabyBear, BabyBearExt4, params)."""
+    from plonky3_tpu_torch import cli
+    from plonky3_tpu_torch.compat import batch_fixture_airs as fx
+    from plonky3_tpu_torch.fields import BabyBear as F
+    from plonky3_tpu_torch.fields import BabyBearExt4 as E
+    from plonky3_tpu_torch.stark.batch import BatchInstance
+    from plonky3_tpu_torch.stark.config import poseidon2_stark_config
+
+    job = cli.build("baby-bear", "poseidon-2-permutations", log_p2, 3,
+                    "benchmark-high-arity", "poseidon2", device)
+    config = poseidon2_stark_config(F, E, params, device=device)
+    ft, fpis = fx.fibonacci_trace(F, log_mul)
+
+    def dev(t):
+        return torch.from_numpy(F.to_monty_np(t).astype(np.int64)).to(device)
+
+    inst = [BatchInstance(job.air, job.trace, []),
+            BatchInstance(fx.MulAirLookups(F, reps=2, is_global=True),
+                          dev(fx.mul_trace(F, 1 << log_mul, 2)), []),
+            BatchInstance(fx.FibAirLookups(F, log_height=log_mul),
+                          dev(ft), fpis)]
+    return config, inst, [i.public_values for i in inst]
+
+
+def _bump_terminal(proof, E):
+    proof.lookup_terminals[1] = E.add_h(proof.lookup_terminals[1],
+                                        E.one_h())
+
+
+def _bump_perm_value(proof, E):
+    inst = proof.instances[1]
+    inst.permutation_local = list(inst.permutation_local)
+    inst.permutation_local[0] = E.add_h(inst.permutation_local[0],
+                                        E.one_h())
+
+
+def _bump_batch_trace_value(proof, E):
+    inst = proof.instances[2]
+    inst.trace_local = list(inst.trace_local)
+    inst.trace_local[0] = E.add_h(inst.trace_local[0], E.one_h())
+
+
+def phase_batch_ref(torch, np, kernels, card):
+    """The canonical batch STARK (stark/batch_ref.py) at full size under
+    poseidon2_stark_config(BabyBear, BabyBearExt4,
+    new_benchmark_high_arity()): the CLI's poseidon-2-permutations trace
+    over BabyBear (2^17 x 2,384, no bus), MulAirLookups at 2^20 x 7 and
+    FibAirLookups at 2^20 with its preprocessed column on the MulFib bus.
+    The MulFib columns stay unpacked (a merged pin would reach degree 3,
+    above the budget of 2), so every constraint has degree 2 and one
+    quotient chunk fits the LDE of log_blowup 1. keygen; a cold and a
+    warm prove with spans, peak memory, the launches of the warm one; a
+    third with per-launch events; all three equal; the host verify; a
+    changed terminal, opened permutation value and trace value rejected;
+    the proof through the postcard wire (batch_wire, TWO_ADIC_SPEC) and
+    back, equal, with its byte count. Returns launches and per-proof
+    bounds."""
+    from plonky3_tpu_torch.compat.batch_wire import (
+        decode_to_batch_ref_proof, encode_batch_ref_proof)
+    from plonky3_tpu_torch.fields import BabyBear as F
+    from plonky3_tpu_torch.fields import BabyBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.serde.proof_codec import TWO_ADIC_SPEC
+    from plonky3_tpu_torch.stark import batch_ref as br
+
+    t0 = time.perf_counter()
+    config, inst, publics = _batch_ref_case(
+        torch, np, "cuda", 17, 20, FriParameters.new_benchmark_high_arity())
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    airs = [i.air for i in inst]
+    t0 = time.perf_counter()
+    common = br.keygen(config, airs,
+                       [i.trace.shape[0].bit_length() - 1 for i in inst])
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+
+    def run(spans=None):
+        t0 = time.perf_counter()
+        proof = br.prove_batch_ref(config, inst, common, spans=spans)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    cold_spans, warm_spans = {}, {}
+    first, cold_s = run(cold_spans)
+    kernels.reset_launches()
+    proof, warm_s = run(warm_spans)
+    launches = dict(kernels.LAUNCHES)
+    peak_mem = torch.cuda.max_memory_allocated()
+    missing = [k for k in BATCH_REF_PATH if launches[k] == 0]
+    launched = [k for k in BATCH_REF_STRAY if launches[k]]
+    if missing or launched:
+        raise AssertionError(f"batch_ref prove: not launched {missing}, "
+                             f"launched {launched}")
+    (traced, _), calls = recorded(torch, kernels, run)
+    if not as_plain(first) == as_plain(proof) == as_plain(traced):
+        raise AssertionError("three batch_ref proves differ")
+    t0 = time.perf_counter()
+    br.verify_batch_ref(config, airs, proof, publics, common)
+    verify_s = time.perf_counter() - t0
+    tamper = {}
+    for name, change, want in (
+            ("terminal", _bump_terminal, ("lookup terminal sum",)),
+            ("permutation_local", _bump_perm_value,
+             ("InvalidOpeningArgument", "OodEvaluationMismatch")),
+            ("trace_local", _bump_batch_trace_value,
+             ("InvalidOpeningArgument", "OodEvaluationMismatch"))):
+        bad = copy.deepcopy(proof)
+        change(bad, E)
+        tamper[name] = rejected(name, lambda: br.verify_batch_ref(
+            config, airs, bad, publics, common), want)
+    t0 = time.perf_counter()
+    wire = encode_batch_ref_proof(proof, F, TWO_ADIC_SPEC)
+    back = decode_to_batch_ref_proof(wire, F, TWO_ADIC_SPEC)
+    wire_s = time.perf_counter() - t0
+    if as_plain(back) != as_plain(proof):
+        raise AssertionError("the batch_ref proof changed on the wire")
+    emit({"phase": "batch_ref", "shapes": [list(i.trace.shape)
+                                           for i in inst],
+          "degree_bits": proof.degree_bits, "plans": common.plans,
+          "log_chunks": common.log_chunks, "fri": "new_benchmark_high_arity",
+          "trace_gen_s": gen_s, "keygen_s": keygen_s,
+          "cold_prove_s": cold_s, "warm_prove_s": warm_s,
+          "peak_mem_bytes": peak_mem, "launches": launches,
+          "equal_proofs": 3, "verify_s": verify_s, "tamper": tamper,
+          "wire_bytes": len(wire), "wire_roundtrip_s": wire_s,
+          "host_cpu": host_cpu()})
+    emit({"phase": "batch_ref_spans", "cold": cold_spans,
+          "warm": warm_spans})
+    per_proof = launch_bounds(card, calls, [proof.opening_proof
+                                            .query_pow_witness])
+    emit({"phase": "batch_ref_per_proof", "kernels": per_proof})
+    return dict(launches=launches, per_proof=per_proof, device_ms={})
+
+
+def phase_interaction(torch, np, kernels, card):
+    """LogUp buses across batch instances (stark/interaction.py) under
+    keccak_stark_config(KoalaBear, KoalaBearExt4,
+    new_benchmark_high_arity()): a 16-bit range check, 2^20 queries into
+    the 2^16-row table with multiplicities, and 2^18 pairs on a
+    permutation-check bus, in one proof (mixed heights: the trees inject
+    by compress_kernel). A cold and a warm prove with spans, peak memory,
+    the warm one's launches, a third with per-launch events, all equal;
+    the host verify; a table with one multiplicity raised proven and
+    rejected. Returns launches and per-proof bounds."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark import interaction as it
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+
+    config = keccak_stark_config(F, E,
+                                 FriParameters.new_benchmark_high_arity(),
+                                 device="cuda")
+    inst = _bus_instances(torch, np, F, "cuda", 20, 16, 18)
+    airs = [i.air for i in inst]
+
+    def run(instances, spans=None):
+        t0 = time.perf_counter()
+        proof = it.prove_batch_with_lookups(config, instances, spans=spans)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    cold_spans, warm_spans = {}, {}
+    first, cold_s = run(inst, cold_spans)
+    kernels.reset_launches()
+    proof, warm_s = run(inst, warm_spans)
+    launches = dict(kernels.LAUNCHES)
+    peak_mem = torch.cuda.max_memory_allocated()
+    missing = [k for k in INTERACTION_PATH if launches[k] == 0]
+    launched = [k for k in INTERACTION_STRAY if launches[k]]
+    if missing or launched:
+        raise AssertionError(f"interaction prove: not launched {missing}, "
+                             f"launched {launched}")
+    (traced, _), calls = recorded(torch, kernels, lambda: run(inst))
+    if not as_plain(first) == as_plain(proof) == as_plain(traced):
+        raise AssertionError("three interaction proves differ")
+    publics = [[] for _ in inst]
+    t0 = time.perf_counter()
+    it.verify_batch_with_lookups(config, airs, proof, publics)
+    verify_s = time.perf_counter() - t0
+    bad = _bus_instances(torch, np, F, "cuda", 20, 16, 18, unbalanced=True)
+    bad_proof, bad_s = run(bad)
+    unbalanced = rejected("unbalanced table", lambda: (
+        it.verify_batch_with_lookups(config, airs, bad_proof, publics)),
+        ("cross-AIR lookup terminal sum",))
+    emit({"phase": "interaction", "shapes": [list(i.trace.shape)
+                                             for i in inst],
+          "degree_bits": proof.base.degree_bits,
+          "cold_prove_s": cold_s, "warm_prove_s": warm_s,
+          "peak_mem_bytes": peak_mem, "launches": launches,
+          "equal_proofs": 3, "verify_s": verify_s,
+          "unbalanced_prove_s": bad_s, "unbalanced": unbalanced})
+    emit({"phase": "interaction_spans", "cold": cold_spans,
+          "warm": warm_spans})
+    per_proof = launch_bounds(card, calls)
+    emit({"phase": "interaction_per_proof", "kernels": per_proof})
+    return dict(launches=launches, per_proof=per_proof, device_ms={})
+
+
+def phase_serde(torch, np, babybear_poseidon2):
+    """The postcard wire and the new provers at 256 rows: the
+    babybear_poseidon2 phase's full-size proof through uni_stark_wire
+    (TWO_ADIC_SPEC) and back, equal, with its byte count; the canonical
+    batch (the CLI's BabyBear trace at 2^8 rows, MulAirLookups and
+    FibAirLookups at 2^8, SMALL_PARAMS) and the bus batch (2^8 queries
+    into 2^6 table rows, 2^8 pairs) proven on the card equal to the CPU's,
+    verified, and the batch proof through batch_wire and back."""
+    from plonky3_tpu_torch.compat.batch_wire import (
+        decode_to_batch_ref_proof, encode_batch_ref_proof)
+    from plonky3_tpu_torch.compat.uni_stark_wire import (
+        decode_to_our_proof, encode_our_proof)
+    from plonky3_tpu_torch.fields import BabyBear as BF
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.serde.proof_codec import TWO_ADIC_SPEC
+    from plonky3_tpu_torch.stark import batch_ref as br
+    from plonky3_tpu_torch.stark import interaction as it
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+
+    out = {}
+    proof = babybear_poseidon2["proof"]
+    t0 = time.perf_counter()
+    wire = encode_our_proof(proof, BF, TWO_ADIC_SPEC)
+    back = decode_to_our_proof(wire, BF, TWO_ADIC_SPEC)
+    out["uni_stark_wire_s"] = time.perf_counter() - t0
+    if as_plain(back) != as_plain(proof):
+        raise AssertionError("the babybear_poseidon2 proof changed on the "
+                             "wire")
+    out["uni_stark_wire_bytes"] = len(wire)
+    params = FriParameters(**SMALL_PARAMS)
+    proofs = {}
+    for dev in ("cuda", "cpu"):
+        config, inst, publics = _batch_ref_case(torch, np, dev, 8, 8, params)
+        airs = [i.air for i in inst]
+        common = br.keygen(config, airs, [8, 8, 8])
+        t0 = time.perf_counter()
+        proof = br.prove_batch_ref(config, inst, common)
+        torch.cuda.synchronize()
+        out[f"batch_ref_{dev}_s"] = time.perf_counter() - t0
+        br.verify_batch_ref(config, airs, proof, publics, common)
+        wire = encode_batch_ref_proof(proof, BF, TWO_ADIC_SPEC)
+        if as_plain(decode_to_batch_ref_proof(wire, BF, TWO_ADIC_SPEC)) != (
+                as_plain(proof)):
+            raise AssertionError("the small batch_ref proof changed on the "
+                                 "wire")
+        kconfig = keccak_stark_config(F, E, params, device=dev)
+        binst = _bus_instances(torch, np, F, dev, 8, 6, 8)
+        t0 = time.perf_counter()
+        bproof = it.prove_batch_with_lookups(kconfig, binst)
+        torch.cuda.synchronize()
+        out[f"interaction_{dev}_s"] = time.perf_counter() - t0
+        it.verify_batch_with_lookups(kconfig, [i.air for i in binst],
+                                     bproof, [[] for _ in binst])
+        proofs[dev] = (as_plain(proof), wire, as_plain(bproof))
+    if proofs["cuda"] != proofs["cpu"]:
+        raise AssertionError("the small batch_ref or interaction proofs "
+                             "differ between CUDA and the CPU")
+    emit({"phase": "serde", "small_rows": 256, "cuda_equals_cpu": True,
+          "small_batch_ref_wire_bytes": len(proofs["cuda"][1]), **out})
+
+
 def host_cpu() -> str:
     """The first CPU's model name with its vendor, family, model and
     clock from /proc/cpuinfo (where the name reads "unknown", family
@@ -3122,6 +3501,10 @@ def main(argv=None) -> int:
     timed("preprocessed", phase_preprocessed, torch, np)
     timed("lookup", phase_lookup, torch, np)
     bt = timed("batch", phase_batch, torch, np, kernels, card)
+    bref = timed("batch_ref", phase_batch_ref, torch, np, kernels, card)
+    inter = timed("interaction", phase_interaction, torch, np, kernels,
+                  card)
+    timed("serde", phase_serde, torch, np, bbp2)
     # launches, proof_* : the main path (the fast prover) of the kernel's
     # config, keccak or (the duplex transcript's kernels) Poseidon2, and
     # for BabyBear's duplex kernels (<21, 7>, `*_babybear`) the BabyBear
@@ -3165,7 +3548,9 @@ def main(argv=None) -> int:
                 paths.append((key, got))
                 rec[f"launches{key}"] = got["launches"][name]
         for key, got, path in (("_zk_air", zk, ZK_PATH),
-                               ("_batch", bt, BATCH_PATH)):
+                               ("_batch", bt, BATCH_PATH),
+                               ("_batch_ref", bref, BATCH_REF_PATH),
+                               ("_interaction", inter, INTERACTION_PATH)):
             if name in path:
                 paths.append((key, got))
                 rec[f"launches{key}"] = got["launches"][name]

@@ -23,8 +23,13 @@ in the reference. `builder.periodic` holds the AIR's periodic columns.
 `backend.const_vec(values)` is a vector of constants, one a lane of a
 stacked value (Sha256Air's round constants). The debug backend labels
 its failures with the namespaces an AIR pushes (`air/composition.py`).
-Extension-field constraints (`assert_zero_ext`) and bus interactions
-come with the first AIR that needs them (ROADMAP M17).
+
+An extension-field constraint (`assert_zero_ext`, D component values)
+takes one alpha power, where D base constraints would take D
+(air/src/builder.rs ExtensionBuilder). Bus interactions
+(`push_interaction`, `push_local_interaction`; lookup/src/builder.rs)
+are recorded in `builder.interactions`, a list the filtered children
+share, for `stark/interaction.py` and `stark/batch_ref.py`.
 """
 
 from __future__ import annotations
@@ -122,6 +127,22 @@ class AirBuilder:
         self.is_transition = is_transition
         self.periodic = list(periodic)  # [Sym] the periodic columns
         self._filter = None  # a Sym that multiplies every constraint
+        # the bus messages of this eval, in order: dicts with the bus
+        # name, kind, field (or tuple) Syms, count Syms and the count's
+        # height weight; shared with the when() children
+        self.interactions = []
+
+    def lift(self, x):
+        """x as a Sym: a Sym as it is, an int as a constant."""
+        if isinstance(x, Sym):
+            return x
+        return Sym(self.backend, self.backend.const(int(x)))
+
+    def _gated(self, count):
+        """A message's count Sym, gated by the filter (an inactive row
+        sends nothing)."""
+        count = self.lift(count)
+        return count if self._filter is None else self._filter * count
 
     # -- constraint emission ---------------------------------------------
     def assert_zero(self, x):
@@ -140,6 +161,14 @@ class AirBuilder:
     def assert_bool(self, x):
         self.assert_zero(x * (x - 1))
 
+    def assert_zero_ext(self, comps):
+        """One extension-field constraint from its D component values:
+        it takes a single alpha power."""
+        comps = [self.lift(c) for c in comps]
+        if self._filter is not None:
+            comps = [self._filter * c for c in comps]
+        self.backend.emit_ext([c.v for c in comps])
+
     def assert_zero_block(self, x: Sym, count: int):
         """`count` constraints at once from a vector Sym, row-major over
         its stacked axes."""
@@ -157,7 +186,28 @@ class AirBuilder:
                            self.is_transition, self.periodic)
         child._filter = (condition if self._filter is None
                          else self._filter * condition)
+        child.interactions = self.interactions
         return child
+
+    # -- bus interactions (lookup/src/builder.rs push_interaction) --------
+    def push_interaction(self, bus_name, fields, count, count_weight=1,
+                         kind="global"):
+        """One message on the named bus: `fields` with multiplicity
+        `count` (negative: received); `count_weight` bounds the count's
+        magnitude a row (types.rs:48)."""
+        self.interactions.append(dict(
+            bus=bus_name, kind=kind, fields=[self.lift(f) for f in fields],
+            count=self._gated(count), count_weight=count_weight))
+
+    def push_local_interaction(self, pairs, count_weight=1):
+        """A local lookup (push_local_interaction): one column holding the
+        sum of the fractions of several (fields, count) pairs on a bus of
+        its own, whose counts cancel within the instance."""
+        self.interactions.append(dict(
+            bus=None, kind="local",
+            tuples=[[self.lift(f) for f in fields] for fields, _ in pairs],
+            counts=[self._gated(count) for _, count in pairs],
+            count_weight=count_weight))
 
     def when_first_row(self):
         return self.when(self.is_first_row)
@@ -196,6 +246,9 @@ class SymbolicBackend:
 
     def emit(self, deg):
         self.constraint_degrees.append(deg)
+
+    def emit_ext(self, comps):
+        self.constraint_degrees.append(max(comps))
 
     def stack(self, vals):
         out = list(vals)
@@ -243,17 +296,23 @@ class ProverBackend:
                 device=device).reshape(-1, 1)
         return hit
 
+    # two constants (Python ints, as `const` gives them) combine as ints:
+    # the field's tensor ops need a tensor
     def add(self, a, b):
+        if isinstance(a, int) and isinstance(b, int):
+            return (a + b) % self.F.P
         return self.F.add(a, b)
 
     def sub(self, a, b):
+        if isinstance(a, int) and isinstance(b, int):
+            return (a - b) % self.F.P
         return self.F.sub(a, b)
 
     def mul(self, a, b):
         return self.F.mul(a, b)
 
     def neg(self, a):
-        return self.F.sub(0, a)
+        return self.sub(0, a)
 
     def _accumulate(self, term):
         self.acc = term if self.acc is None else self.acc + term
@@ -262,6 +321,26 @@ class ProverBackend:
         ap = self.alpha_pows[self.idx]  # (D,)
         self.idx += 1
         self._accumulate(torch.as_tensor(c)[..., None] * ap % self.F.P)
+
+    def emit_ext(self, comps):
+        """One extension constraint: the D component values times one
+        alpha power, an extension product whose partial products stay
+        before the Montgomery factor, as `emit`'s do."""
+        ap = self.alpha_pows[self.idx]  # (D,)
+        self.idx += 1
+        P, D, W = self.F.P, self.E.D, self.E.W
+        comps = [torch.as_tensor(c, device=ap.device) for c in comps]
+        out = []
+        for k in range(D):
+            acc = None
+            for i in range(D):
+                j = k - i if i <= k else k - i + D
+                t = comps[i] * ap[j] % P
+                if i > k:
+                    t = t * W
+                acc = t if acc is None else acc + t
+            out.append(acc % P)
+        self._accumulate(torch.stack(torch.broadcast_tensors(*out), dim=-1))
 
     def stack(self, vals):
         return torch.stack(torch.broadcast_tensors(*vals))
@@ -316,6 +395,16 @@ class VerifierBackend:
 
     def emit(self, c):
         self.acc = self.E.add_h(self.E.mul_h(self.acc, self.alpha), c)
+
+    def emit_ext(self, comps):
+        """One extension constraint from D component values, each an
+        extension value at zeta: Σ_d comps[d]·X^d, folded once."""
+        val = self.E.zero_h()
+        for d, c in enumerate(comps):
+            basis = [0] * self.E.D
+            basis[d] = 1
+            val = self.E.add_h(val, self.E.mul_h(c, tuple(basis)))
+        self.emit(val)
 
     def stack(self, vals):
         return list(vals)
@@ -375,6 +464,18 @@ class DebugBackend:
         if bad.size:
             self.failures.append(dict(constraint=self._label(),
                                       rows=bad[:10].tolist()))
+        self.idx += 1
+
+    def emit_ext(self, comps):
+        """One extension constraint: a row fails where any component is
+        nonzero."""
+        bad = np.zeros(self.n, dtype=bool)
+        for c in comps:
+            bad |= np.broadcast_to(np.asarray(c) != 0, (self.n,))
+        rows = np.nonzero(bad)[0]
+        if rows.size:
+            self.failures.append(dict(constraint=self._label(),
+                                      rows=rows[:10].tolist()))
         self.idx += 1
 
     def stack(self, vals):

@@ -17,8 +17,8 @@ from .builder import AirBuilder, RowWindow
 def sub_builder(parent: AirBuilder, col_start: int, col_end: int
                 ) -> AirBuilder:
     """A builder that shows a sub-AIR only main columns [col_start,
-    col_end); its constraints and filters land in the parent's backend
-    (sub_builder.rs:45)."""
+    col_end); its constraints, filters and bus interactions land in the
+    parent's backend and list (sub_builder.rs:45)."""
     child = AirBuilder(
         parent.backend,
         RowWindow(local=parent.main.local[col_start:col_end],
@@ -26,6 +26,7 @@ def sub_builder(parent: AirBuilder, col_start: int, col_end: int
         parent.public_values, parent.is_first_row, parent.is_last_row,
         parent.is_transition, parent.periodic)
     child._filter = parent._filter
+    child.interactions = parent.interactions
     return child
 
 

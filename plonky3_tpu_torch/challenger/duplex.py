@@ -17,6 +17,11 @@ duplex_challenger.rs:33), the transcript of the Poseidon2 config
                 observe(w) (grinding_challenger.rs:33), searched by
                 `poseidon2_grind` on the challenger's device
 
+An explicit `rate` takes another width (the golden fixtures'
+DuplexChallenger<BabyBear, Perm16, 16, 8>, `compat/fixture_configs.py`);
+the grind kernel fixes width 24 and rate 16, so such a transcript grinds
+on the host, as the reference's does.
+
 The permutation is the numpy `Poseidon2.permute_np`. The prover's
 `prove()` and the verifier use this class; the fast prover uses
 `device_duplex.DeviceDuplexChallenger`, which samples the same values.
@@ -31,13 +36,18 @@ from ..hashes.poseidon2_cuda import RATE, WIDTH, poseidon2_grind
 
 
 class DuplexChallenger:
-    def __init__(self, perm, device="cpu"):
-        if perm.width != WIDTH:
-            raise ValueError(f"the duplex transcript takes a width-{WIDTH} "
-                             f"permutation, not {perm.width}")
+    def __init__(self, perm, device="cpu", rate=None):
+        if rate is None:
+            if perm.width != WIDTH:
+                raise ValueError(f"the duplex transcript takes a width-"
+                                 f"{WIDTH} permutation, not {perm.width}")
+            rate = RATE
+        if not 0 < rate < perm.width:
+            raise ValueError(f"a rate of {rate} for width {perm.width}")
         self.perm = perm
+        self.rate = rate
         self.device = torch.device(device)  # where `grind` searches
-        self.state = [0] * WIDTH
+        self.state = [0] * perm.width
         self.input_buffer: list[int] = []
         self.output_buffer: list[int] = []
 
@@ -46,17 +56,18 @@ class DuplexChallenger:
         self.state[:k] = self.input_buffer
         self.input_buffer = []
         if k:
-            self.state[k:RATE] = [0] * (RATE - k)
-            self.state[RATE] = (self.state[RATE] + k) % self.perm.F.P
+            self.state[k:self.rate] = [0] * (self.rate - k)
+            self.state[self.rate] = ((self.state[self.rate] + k)
+                                     % self.perm.F.P)
         out = self.perm.permute_np(np.asarray(self.state, dtype=np.int64))
         self.state = [int(x) for x in out]
-        self.output_buffer = self.state[:RATE]
+        self.output_buffer = self.state[:self.rate]
 
     # -- observation ------------------------------------------------------
     def observe(self, value: int):
         self.output_buffer = []
         self.input_buffer.append(int(value) % self.perm.F.P)
-        if len(self.input_buffer) == RATE:
+        if len(self.input_buffer) == self.rate:
             self._duplexing()
 
     def observe_many(self, values):
@@ -107,15 +118,34 @@ class DuplexChallenger:
         every candidate in lane k."""
         if bits == 0:
             return 0
-        F = self.perm.F
+        F, rate = self.perm.F, self.rate
         k = len(self.input_buffer)
         base = list(self.state)
         base[:k] = self.input_buffer
-        base[k + 1:RATE] = [0] * (RATE - k - 1)
-        base[RATE] = (base[RATE] + k + 1) % F.P
-        base_m = torch.from_numpy(F.to_monty_np(np.asarray(
-            base, dtype=np.uint64)).astype(np.int32)).to(self.device)
-        w = int(poseidon2_grind(self.perm, base_m, k, bits)[0])
+        base[k + 1:rate] = [0] * (rate - k - 1)
+        base[rate] = (base[rate] + k + 1) % F.P
+        if (self.perm.width, rate) == (WIDTH, RATE):
+            base_m = torch.from_numpy(F.to_monty_np(np.asarray(
+                base, dtype=np.uint64)).astype(np.int32)).to(self.device)
+            w = int(poseidon2_grind(self.perm, base_m, k, bits)[0])
+        else:
+            w = self._grind_host(base, k, bits)
         if w < 0 or not self.check_witness(bits, w):
             raise RuntimeError("grind witness failed its replay")
         return w
+
+    def _grind_host(self, base, k, bits, batch=1 << 12):
+        """The smallest witness by the numpy permutation, `batch`
+        candidates at a time: the staged state with the candidate in
+        lane k, whose last output lane's low bits must be zero."""
+        mask = (1 << bits) - 1
+        for start in range(0, self.perm.F.P, batch):
+            cand = np.arange(start, min(start + batch, self.perm.F.P))
+            states = np.tile(np.asarray(base, dtype=np.int64),
+                             (cand.shape[0], 1))
+            states[:, k] = cand
+            out = self.perm.permute_np(states)[:, self.rate - 1]
+            hit = np.nonzero((out & mask) == 0)[0]
+            if hit.size:
+                return int(cand[hit[0]])
+        return -1

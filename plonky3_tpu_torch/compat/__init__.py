@@ -1,7 +1,13 @@
-"""Carry inputs and parameters from other code into the port.
+"""Carry inputs and parameters from other code into the port, and the
+reference's golden-fixture compatibility layer.
 
 A STARK has no weights: what two provers must share is the constants, the
-FRI parameters and the trace inputs.
+FRI parameters and the trace inputs (this module). The submodules port
+`plonky3_tpu/compat/`: `smallrng` (rand's SmallRng, the fixtures'
+Poseidon2 constants), `fixture_configs` (the fixtures' STARK configs),
+`batch_fixture_airs` (the batch fixture's AIRs and trace), and the
+conversions of the port's proofs to the postcard wire records and back
+(`uni_stark_wire`, `batch_wire`; `serde/` writes the bytes).
 """
 
 from __future__ import annotations
@@ -9,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fri.config import FriParameters
+from ..fri.config import FriParameters
 
 _FRI_FIELDS = ("log_blowup", "log_final_poly_len", "max_log_arity",
                "num_queries", "commit_proof_of_work_bits",
@@ -41,7 +47,7 @@ def field_from(obj):
     """The port's field (or its degree-4 or degree-8 extension) with the
     constants of another package's field object: matched by name, and
     every normative constant must agree (ValueError otherwise)."""
-    from . import fields
+    from .. import fields
 
     base = getattr(obj, "base", None)
     if base is not None:  # a binomial extension
@@ -68,7 +74,7 @@ def field_from(obj):
 def poseidon2_from(perm):
     """A port `Poseidon2` with another package's permutation's field (by
     `field_from`), width, s-box degree and round constants."""
-    from .hashes.poseidon2 import Poseidon2
+    from ..hashes.poseidon2 import Poseidon2
 
     return Poseidon2(
         F=field_from(perm.F), width=int(perm.width), d=int(perm.d),
@@ -81,7 +87,7 @@ def poseidon1_from(perm):
     """A port `Poseidon1` with another package's permutation's field (by
     `field_from`), width, s-box degree, half the full rounds, round
     constants and MDS first row."""
-    from .hashes.poseidon1 import Poseidon1
+    from ..hashes.poseidon1 import Poseidon1
 
     return Poseidon1(
         F=field_from(perm.F), width=int(perm.width), d=int(perm.d),

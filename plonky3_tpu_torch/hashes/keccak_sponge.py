@@ -13,7 +13,11 @@ sponge kernel wrote them, and a tree's levels are converted to int64 once.
 
 The host paths serve the verifier: `hash_rows_np` and `compress_np` hash
 a batch of rows or digest pairs as numpy uint32 words with the numpy
-keccak-f.
+keccak-f; `hash_iter_host` and `compress_host` one row (standard-form
+ints) or one node (words as ints of any integer type: each is taken by
+`int`, where the reference's shifts numpy uint32 words in 32 bits);
+`compress_many_np` and `compress_host_many` N children, absorbed in one
+rate block while N <= 4 (the N-ary trees of `merkle/generalized.py`).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .keccak import keccak_f1600_np
+from .keccak import keccak_f1600_host, keccak_f1600_np
 from .keccak_cuda import (
     keccak_compress,
     keccak_merkle_ladder,
@@ -92,6 +96,23 @@ class KeccakFieldSponge:
             st = keccak_f1600_np(st)
         return _digest_np(st)
 
+    def hash_iter_host(self, elems):
+        """One row: standard-form ints -> the 8 digest words."""
+        words = np.asarray([self.F.to_monty_h(int(x) % self.F.P)
+                            for x in elems], dtype=np.uint32)
+        return _host_digest(self.hash_rows_np([words.reshape(1, -1)]))
+
+
+def _host_digest(d):
+    """A (1, 8) digest array -> a tuple of 8 ints."""
+    return tuple(int(x) for x in d[0])
+
+
+def _words_row(children):
+    """Digests (int sequences) -> one (1, 8N) uint32 row."""
+    return np.asarray([[int(x) for c in children for x in c]],
+                      dtype=np.uint32)
+
 
 @dataclass(frozen=True)
 class KeccakCompressor:
@@ -115,9 +136,25 @@ class KeccakCompressor:
 
     def compress_np(self, left, right):
         """(h, 8) + (h, 8) u32 digest words (numpy) -> (h, 8) uint32."""
-        lanes = _lanes_np(np.concatenate([np.asarray(left),
-                                          np.asarray(right)], axis=1))
+        return self.compress_many_np([left, right])
+
+    def compress_many_np(self, children):
+        """N (h, 8) u32 digest words (numpy), N <= 4, in one block ->
+        (h, 8) uint32."""
+        lanes = _lanes_np(np.concatenate([np.asarray(c) for c in children],
+                                         axis=1))
+        if lanes.shape[1] > RATE:
+            raise ValueError(f"{len(children)} children exceed one keccak "
+                             f"block")
         st = np.zeros((lanes.shape[0], 25), np.uint64)
-        st[:, :2 * OUT] = lanes
+        st[:, :lanes.shape[1]] = lanes
         return _digest_np(keccak_f1600_np(st))
+
+    def compress_host_many(self, children):
+        """N digests (8 ints each) -> one."""
+        return _host_digest(self.compress_many_np([_words_row(children)]))
+
+    def compress_host(self, left, right):
+        """Two digests (8 ints each) -> one."""
+        return self.compress_host_many([left, right])
 

@@ -13,8 +13,11 @@ The device paths hash every row of a level at once, as (h, width) int64
 states in standard form (`Poseidon2.permute_std`); they take and return
 Montgomery-form int64 tensors. The `_np` paths take and return
 Montgomery-form numpy words, as the reference's do, and serve the
-verifier. Plain PyTorch: the JAX package computes these in jnp, not in a
-TPU kernel.
+verifier. The `_host` paths hash one row or one node of standard-form
+Python ints (the unpruned Merkle verifies); `compress_many_np` and
+`compress_host_many` take N children (the N-ary trees of
+`merkle/generalized.py`). Plain PyTorch: the JAX package computes these
+in jnp, not in a TPU kernel.
 """
 
 from __future__ import annotations
@@ -81,6 +84,14 @@ class PaddingFreeSponge:
                             self.perm.tables_np)
         return F.to_monty_np(digest)
 
+    def hash_iter_host(self, elems):
+        """One row: standard-form ints -> the digest's standard-form ints."""
+        row = np.asarray([int(x) % self.F.P for x in elems],
+                         dtype=np.int64).reshape(1, -1)
+        state = np.zeros((1, self.perm.width), np.int64)
+        digest = self._hash(row, lambda b: b, state, self.perm.tables_np)
+        return tuple(int(x) for x in digest[0])
+
 
 @dataclass(frozen=True)
 class TruncatedPermutation:
@@ -106,6 +117,36 @@ class TruncatedPermutation:
         state[:, self.chunk:2 * self.chunk] = F.from_monty_np(right)
         out = self.perm.permute_std(state, self.perm.tables_np)
         return F.to_monty_np(out[:, :self.chunk])
+
+    def compress_many_np(self, children):
+        """N (h, chunk) uint32 Montgomery digests (numpy) -> (h, chunk):
+        the children side by side, zero-extended, permuted, truncated."""
+        F = self.F
+        children = [np.asarray(c) for c in children]
+        if len(children) * self.chunk > self.perm.width:
+            raise ValueError(f"{len(children)} children of {self.chunk} "
+                             f"words exceed width {self.perm.width}")
+        state = np.zeros((children[0].shape[0], self.perm.width), np.int64)
+        for i, c in enumerate(children):
+            state[:, i * self.chunk:(i + 1) * self.chunk] = (
+                F.from_monty_np(c))
+        out = self.perm.permute_std(state, self.perm.tables_np)
+        return F.to_monty_np(out[:, :self.chunk])
+
+    def compress_host_many(self, children):
+        """N standard-form digests (int sequences) -> one."""
+        words = [int(x) for c in children for x in c]
+        if len(words) > self.perm.width:
+            raise ValueError(f"{len(words)} words exceed width "
+                             f"{self.perm.width}")
+        state = np.zeros(self.perm.width, np.int64)
+        state[:len(words)] = words
+        out = self.perm.permute_std(state, self.perm.tables_np)
+        return tuple(int(x) for x in out[:self.chunk])
+
+    def compress_host(self, left, right):
+        """Two standard-form digests -> one."""
+        return self.compress_host_many([left, right])
 
     @property
     def F(self):

@@ -3,8 +3,8 @@
 Port of `plonky3_tpu/merkle/extension_mmcs.py`
 (commit/src/adapters/extension_mmcs.rs:17): an (h, w, D) extension matrix
 is committed as the flattened (h, w·D) base matrix, and opened rows are
-regrouped into D-tuples; to verify, they are flattened back and checked
-by the base MMCS.
+regrouped into D-tuples; to verify (pruned, or one unpruned path),
+they are flattened back and checked by the base MMCS.
 """
 
 from __future__ import annotations
@@ -45,6 +45,12 @@ class ExtensionMmcs:
     def _omb_finish(self, data, plan, pulled):
         rows_pq, sibs = self.inner._omb_finish(data, plan, pulled)
         return self._regroup(rows_pq), sibs
+
+    def verify_batch(self, root_std, dims, index, ext_rows, proof) -> bool:
+        """One unpruned opening; dims: [(height, extension width)]."""
+        return self.inner.verify_batch(
+            root_std, [(h, w * self.D) for (h, w) in dims], index,
+            _flat_rows(ext_rows), proof)
 
     def verify_multi_batch(self, root_std, dims, indices, ext_rows_pq,
                            sibling_hashes) -> bool:

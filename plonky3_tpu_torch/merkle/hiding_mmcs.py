@@ -8,9 +8,6 @@ verifier hashes the whole salted row. The salts come from the caller's
 numpy Generator: one draw of (h, salt_elems) per matrix, in the order of
 the matrices, as the reference draws them, so the same seed gives the
 same words. They are appended on the device of the matrix.
-
-The unpruned `verify_batch` comes with `MerkleTreeMmcs.verify_batch`
-(ROADMAP M18).
 """
 
 from __future__ import annotations
@@ -85,6 +82,12 @@ class MerkleTreeHidingMmcs:
 
     def salted_dims(self, dims):
         return [(h, w + self.salt_elems) for (h, w) in dims]
+
+    def verify_batch(self, root_std, dims, index, rows, proof) -> bool:
+        """One unpruned opening; dims carry the real widths, the rows
+        their salts."""
+        return self.inner.verify_batch(root_std, self.salted_dims(dims),
+                                       index, rows, proof)
 
     def verify_multi_batch(self, root_std, dims, indices, rows_pq,
                            sibling_hashes) -> bool:

@@ -30,8 +30,10 @@ Verification of a pruned opening (mmcs/batch.rs verify_multi_batch) runs
 on the host with the compressor's exact numpy hashes, batched over the
 queries a level at a time. Opened rows arrive in standard form and are
 hashed as their Montgomery words, as the leaves were committed; field
-digests likewise. The unpruned single-path verifiers (verify_batch,
-verify_batch_many) come with their first caller.
+digests likewise. The unpruned single-path verifiers (mmcs.rs
+verify_batch) check one path a query: `verify_batch` hashes it with the
+one-row host hashes, `verify_batch_many` many paths at once with the
+batched numpy hashes.
 """
 
 from __future__ import annotations
@@ -273,6 +275,93 @@ class MerkleTreeMmcs:
         if cap.ndim != 2 or cap.shape[0] != 1 << self._eff_cap(log_max):
             return None
         return cap
+
+    def _heights_ok(self, dims, rows_list, log_levels, proofs):
+        """The shared shape checks of the unpruned verifies: each row
+        has its matrix's width (commit/src/mmcs.rs:145), each path
+        `log_levels` siblings, and no matrix is shorter than the cap."""
+        heights = [d[0] for d in dims]
+        log_max = log2_strict(max(heights))
+        if min(heights) < (1 << self._eff_cap(log_max)):
+            return False
+        if any(len(p) != log_levels for p in proofs):
+            return False
+        return all(len(rows) == len(dims) and all(
+            len(rows[i]) == d[1] for i, d in enumerate(dims))
+            for rows in rows_list)
+
+    def verify_batch(self, root_std, dims, index: int, rows, proof) -> bool:
+        """One unpruned opening: rows a matrix (standard form), proof
+        the sibling digests from the leaf up (wire form); dims [(height,
+        width)]."""
+        heights = [d[0] for d in dims]
+        max_h = max(heights)
+        log_max = log2_strict(max_h)
+        eff_cap = self._eff_cap(log_max)
+        if not self._heights_ok(dims, [rows], log_max - eff_cap, [proof]):
+            return False
+        order = sorted(range(len(dims)), key=lambda i: -heights[i])
+
+        def rows_at(h):
+            return [x for i in order if heights[i] == h for x in rows[i]]
+
+        digest = self.sponge.hash_iter_host(rows_at(max_h))
+        idx, h = index, max_h
+        for sib in proof:
+            h //= 2
+            digest = (self.compressor.compress_host(sib, digest) if idx & 1
+                      else self.compressor.compress_host(digest, sib))
+            idx >>= 1
+            inj = rows_at(h)
+            if inj:
+                digest = self.compressor.compress_host(
+                    digest, self.sponge.hash_iter_host(inj))
+        if eff_cap == 0:
+            return tuple(digest) == tuple(root_std)
+        if len(root_std) != 1 << eff_cap:
+            return False
+        return tuple(digest) == tuple(root_std[idx])
+
+    def verify_batch_many(self, root_std, dims, indices, rows_pq,
+                          proofs_pq) -> bool:
+        """Many unpruned openings at once: one batched hash a tree level
+        covering every query."""
+        heights = [d[0] for d in dims]
+        max_h = max(heights)
+        log_max = log2_strict(max_h)
+        eff_cap = self._eff_cap(log_max)
+        if not self._heights_ok(dims, rows_pq, log_max - eff_cap, proofs_pq):
+            return False
+        order = sorted(range(len(dims)), key=lambda i: -heights[i])
+        to_m = self.F.to_monty_np
+
+        def tips(h):
+            """Leaf digests of the height-h matrices' rows, or None."""
+            parts = [np.array([rows[i] for rows in rows_pq], dtype=np.uint32)
+                     for i in order if heights[i] == h]
+            if not parts:
+                return None
+            return self.sponge.hash_rows_np(
+                [to_m(np.concatenate(parts, axis=1))])
+
+        digest = tips(max_h)
+        idx = np.array(indices, dtype=np.int64)
+        h = max_h
+        for lvl in range(log_max - eff_cap):
+            h //= 2
+            sib = self._digests_m([proof[lvl] for proof in proofs_pq])
+            bit = (idx & 1).astype(bool)[:, None]
+            digest = self.compressor.compress_np(
+                np.where(bit, sib, digest), np.where(bit, digest, sib))
+            idx >>= 1
+            inj = tips(h)
+            if inj is not None:
+                digest = self.compressor.compress_np(digest, inj)
+        digest = self.digests_std(digest)
+        if eff_cap == 0:
+            return bool((digest == np.array(root_std, np.uint32)).all())
+        cap = self._cap_ok(root_std, log_max)
+        return cap is not None and bool((digest == cap[idx]).all())
 
     def verify_multi_batch(self, root_std, dims, indices, rows_pq,
                            sibling_hashes) -> bool:

@@ -28,6 +28,9 @@ class StarkConfig:
     # Poseidon2-24, field digests) or "keccak" (SerializingChallenger32
     # over keccak-256, word digests)
     challenger_kind: str = "duplex"
+    # a () -> challenger that replaces the kind's transcript (the golden
+    # fixtures' DuplexChallenger over Poseidon2-16 at rate 8)
+    challenger_factory: object = None
 
     @property
     def F(self):
@@ -40,6 +43,8 @@ class StarkConfig:
     def initialise_challenger(self):
         """The host transcript; a duplex grind searches on the config's
         device."""
+        if self.challenger_factory is not None:
+            return self.challenger_factory()
         if self.challenger_kind == "keccak":
             from ..challenger.serializing import SerializingChallenger32
 

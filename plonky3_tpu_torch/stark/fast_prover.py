@@ -169,6 +169,8 @@ def _max_heights(data_with_points):
 def _device_challenger(config, device):
     """The config's transcript on `device`; each needs its digest kind."""
     field_digests = config.pcs.mmcs.digest_is_field
+    if config.challenger_factory is not None:
+        raise _Unsupported("a config's own transcript has no device twin")
     if config.challenger_kind == "keccak":
         if field_digests:
             raise _Unsupported("the keccak transcript needs word digests")

@@ -65,12 +65,28 @@ def recompose_quotient(E, chunk_domains, chunks, zeta):
     return quotient
 
 
+def periodic_at_zeta(F, E, air, zeta, n):
+    """Each periodic column's f(zeta^r), r = n/p, by Horner over the
+    period's coefficients: extension tuples."""
+    out = []
+    for col in air.periodic_columns():
+        z_r = E.exp_h(zeta, n // len(col))
+        acc = E.zero_h()
+        for c in reversed(periodic_coeffs(F, col)):
+            acc = E.add_h(E.mul_h(acc, z_r), E.from_base_h(c))
+        out.append(acc)
+    return out
+
+
 def check_constraints_at_zeta(E, air, alpha, zeta, trace_domain,
-                              trace_local, trace_next, publics, quotient):
-    """C_fold(zeta)·Z_H(zeta)^-1 against the recomposed quotient, for the
-    ZK, preprocessed, lookup and batch verifiers (no periodic columns, as
-    theirs in the reference); raises VerificationError(
-    "OodEvaluationMismatch"). publics: extension tuples."""
+                              trace_local, trace_next, publics, quotient,
+                              message="OodEvaluationMismatch",
+                              error=VerificationError, periodic=(),
+                              after_eval=None):
+    """C_fold(zeta)·Z_H(zeta)^-1 against the recomposed quotient; raises
+    error(message). publics and periodic (the periodic columns at zeta,
+    `periodic_at_zeta`): extension tuples. after_eval(builder, backend)
+    emits further constraints after air.eval (the batch's lookups)."""
     sels = trace_domain.selectors_at_point_ext(E, zeta)
     backend = VerifierBackend(E, alpha)
 
@@ -81,10 +97,15 @@ def check_constraints_at_zeta(E, air, alpha, zeta, trace_domain,
             return trace_next[j]
         return sels[kind]
 
-    air.eval(_make_builder(backend, air.width, air.num_public_values,
-                           entry, lambda j: publics[j]))
+    builder = _make_builder(backend, air.width, air.num_public_values,
+                            entry, lambda j: publics[j],
+                            num_periodic=len(periodic),
+                            periodic_entry=lambda j: periodic[j])
+    air.eval(builder)
+    if after_eval is not None:
+        after_eval(builder, backend)
     if E.mul_h(backend.acc, sels["inv_vanishing"]) != quotient:
-        raise VerificationError("OodEvaluationMismatch")
+        raise error(message)
 
 
 def verify(config: StarkConfig, air: BaseAir, proof: Proof, public_values):
@@ -147,33 +168,14 @@ def verify(config: StarkConfig, air: BaseAir, proof: Proof, public_values):
     quotient = recompose_quotient(E, chunk_domains, ov.quotient_chunks,
                                   zeta)
 
-    # the folded constraints at zeta (verify_constraints :142)
-    sels = trace_domain.selectors_at_point_ext(E, zeta)
-    backend = VerifierBackend(E, alpha)
-
-    def entry(kind, j):
-        if kind == "local":
-            return ov.trace_local[j]
-        if kind == "next":
-            # without next-row reads the window's next entries are zeros
-            # the AIR never reads
-            return E.zero_h() if ov.trace_next is None else ov.trace_next[j]
-        return sels[kind]
-
-    pcols = air.periodic_columns()
-
-    def periodic_at_zeta(j):
-        # f(zeta^r) by Horner over the period's coefficients, r = n/p
-        z_r = E.exp_h(zeta, n // len(pcols[j]))
-        acc = E.zero_h()
-        for c in reversed(periodic_coeffs(F, pcols[j])):
-            acc = E.add_h(E.mul_h(acc, z_r), E.from_base_h(c))
-        return acc
-
-    builder = _make_builder(
-        backend, air.width, air.num_public_values, entry,
-        lambda j: E.from_base_h(public_values[j]),
-        num_periodic=len(pcols), periodic_entry=periodic_at_zeta)
-    air.eval(builder)
-    if E.mul_h(backend.acc, sels["inv_vanishing"]) != quotient:
-        raise OodEvaluationMismatch("OodEvaluationMismatch")
+    # the folded constraints at zeta (verify_constraints :142); without
+    # next-row reads the window's next entries are zeros the AIR never
+    # reads
+    trace_next = ov.trace_next
+    if trace_next is None:
+        trace_next = [E.zero_h()] * air.width
+    check_constraints_at_zeta(
+        E, air, alpha, zeta, trace_domain, ov.trace_local, trace_next,
+        [E.from_base_h(v) for v in public_values], quotient,
+        error=OodEvaluationMismatch,
+        periodic=periodic_at_zeta(F, E, air, zeta, n))

@@ -656,3 +656,68 @@ def test_batch_commit_and_proof_equal_cpu(cuda, kind):
                      [i.public_values for i in instances])
         proofs.append(proof)
     assert proofs[0] == proofs[1]
+
+
+def test_interaction_proof_equals_cpu(cuda):
+    """prove_batch_with_lookups over the reference test's bus AIRs (a
+    range lookup of 2^8 queries into a 2^6-row table, 2^8 pairs each way
+    on a permutation-check bus; mixed heights, so the keccak trees inject
+    through compress_kernel) on the card equals the CPU's, and the port's
+    verifier accepts it."""
+    from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.air.api import BaseAir
+    from plonky3_tpu_torch.stark import interaction
+    from plonky3_tpu_torch.stark.batch import BatchInstance
+    from torch_bus_airs import bus_airs, lookup_traces, permutation_traces
+
+    airs = bus_airs(BaseAir, interaction.LookupBus,
+                    interaction.PermutationCheckBus)
+    traces = (lookup_traces(5, 8, 6)
+              + permutation_traces(6, 8, F.P))
+    names = ("QueryAir", "TableAir", "SendAir", "RecvAir")
+    proofs = []
+    for dev in (cuda, torch.device("cpu")):
+        instances = [BatchInstance(airs[n](F), torch.from_numpy(
+            F.to_monty_np(t).astype(np.int64)).to(dev), [])
+            for n, t in zip(names, traces)]
+        cfg = _configs()["keccak"][0](F, E, _small_params(), device=dev)
+        kernels.reset_launches()
+        proof = interaction.prove_batch_with_lookups(cfg, instances)
+        if dev.type == "cuda":
+            assert kernels.LAUNCHES["keccak_compress"] > 0
+        interaction.verify_batch_with_lookups(
+            cfg, [i.air for i in instances], proof, [[]] * 4)
+        proofs.append(proof)
+    assert proofs[0] == proofs[1]
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_batch_ref_proof_equals_cpu(cuda, is_local):
+    """prove_batch_ref over the batch fixture's AIRs at 2^8 rows
+    (MulAirLookups and FibAirLookups on the MulFib bus, the preprocessed
+    index column; MulAirLookups' local lookup off and on) under the
+    Poseidon2 config over BabyBear on the card equals the CPU's, and the
+    port's verifier accepts it."""
+    from plonky3_tpu_torch.compat import batch_fixture_airs as fx
+    from plonky3_tpu_torch.fields import BabyBear as BF
+    from plonky3_tpu_torch.fields import BabyBearExt4 as BE
+    from plonky3_tpu_torch.stark import batch_ref
+    from plonky3_tpu_torch.stark.batch import BatchInstance
+    from plonky3_tpu_torch.stark.config import poseidon2_stark_config
+
+    ft, fpis = fx.fibonacci_trace(BF, 8)
+    traces, publics = [fx.mul_trace(BF, 256, 2), ft], [[], fpis]
+    proofs = []
+    for dev in (cuda, torch.device("cpu")):
+        airs = [fx.MulAirLookups(BF, reps=2, is_local=is_local),
+                fx.FibAirLookups(BF, log_height=8)]
+        cfg = poseidon2_stark_config(BF, BE, _small_params(), device=dev)
+        common = batch_ref.keygen(cfg, airs, [8, 8])
+        instances = [BatchInstance(a, torch.from_numpy(BF.to_monty_np(t)
+                                                       .astype(np.int64))
+                                   .to(dev), pv)
+                     for a, t, pv in zip(airs, traces, publics)]
+        proof = batch_ref.prove_batch_ref(cfg, instances, common)
+        batch_ref.verify_batch_ref(cfg, airs, proof, publics, common)
+        proofs.append(proof)
+    assert proofs[0] == proofs[1]
