@@ -109,10 +109,10 @@ Phases, each printed as one JSON line:
            the device-transcript prover cold and warm, its proof equal to
            prove()'s (its one call timed), launches (the duplex
            chain and grind, no keccak kernel), one device-to-host copy,
-           peak memory, spans, per-proof bounds, synchronizing calls,
-           profile; then the port's verifier accepts the proof and
-           rejects a changed opened trace value, a changed trace root and
-           a changed commit-phase sibling digest;
+           peak memory, spans, per-proof bounds, profile; then the
+           port's verifier accepts the proof and rejects a changed opened
+           trace value, a changed trace root and a changed commit-phase
+           sibling digest;
   keccak_air the reference CLI's keccak-f-permutations objective at
            full width: 5,461 permutations, a 2^17 x 2,633 KeccakAir trace,
            keccak config, new_benchmark_high_arity(), through the generic
@@ -121,8 +121,8 @@ Phases, each printed as one JSON line:
            launches, one copy, peak memory; the port's verifier accepts
            the proof and rejects a changed opened trace value, a changed
            commit-phase sibling digest and a changed next-row value; then
-           spans, per-proof bounds, synchronizing calls, the profile and
-           the transcript chain call by call. The kernels phase also
+           spans, per-proof bounds, the profile and the transcript
+           chain call by call. The kernels phase also
            holds the NTTs and the leaf sponge at this width against their
            plain versions (the `*_keccak_air` keys of the kernels line);
   blake3_air the reference CLI's blake3-permutations objective at full
@@ -209,7 +209,32 @@ Phases, each printed as one JSON line:
            equal, verified, an unbalanced table rejected;
   serde    the babybear_poseidon2 proof through the postcard wire and
            back; the canonical batch and the bus batch at 256 rows on
-           CUDA equal to the CPU, verified.
+           CUDA equal to the CPU, verified;
+  circle_small  the circle STARK over Mersenne-31 (circle_stark_config:
+           CirclePcs over QM31, the KeccakF Merkle tree, the host
+           transcript) at 256 rows: FibonacciAir and KeccakAir with 10
+           permutations, prove() on CUDA equal to the CPU, verified, a
+           changed opened value rejected;
+  circle_keccak_air  the reference CLI's `--field mersenne-31`
+           keccak-f-permutations objective at full width (5,461
+           permutations, 2^17 x 2,633, `--fri benchmark`: arity 2, 100
+           queries, 16 PoW bits) through `cli.build` and prove(): a cold
+           and two warm proves with spans, equal; launches (the sponge
+           and the ladder; no NTT, transcript or grind kernel), peak
+           memory, verified, a changed opened value and a changed FRI
+           final polynomial rejected, per-proof bounds, the profile. The
+           kernels phase holds the sponge on canonical M31 words at 2^18
+           x 2,633 (2^14 sampled rows against the plain version; the
+           `*_circle_keccak_air` keys);
+  monolith_air  MonolithAir at full width (3,520 columns), 2^16 rows (a
+           cut of depth), under circle_stark_config(new_benchmark()):
+           cold and warm proves, equal, launches, peak memory, verified,
+           a changed opened value rejected, per-proof bounds;
+  cli_circle  `python -m plonky3_tpu_torch.cli prove --field mersenne-31
+           --objective keccak-f-permutations --log-trace-length 17 --fri
+           benchmark` in its own process: exit code 0, the objective line,
+           the stated prover (prove()), the circle_keccak_air phase's
+           proof size, the soundness line.
 Every profile checks that it recorded each of the port's kernels as many
 times as the prove launched it, and profiles again where it did not.
 Before the last line: one JSON object listing every kernel. The last line
@@ -917,6 +942,42 @@ def plain_by_columns(torch, plain, x, got, what,
     return err, ms
 
 
+def sponge_m31(torch, card, records):
+    """The leaf sponge on canonical Mersenne-31 words at the circle
+    KeccakAir path's LDE shape (2^18 x 2,633; its first row all P - 1,
+    its second all 0): the kernel over every row, the plain version over
+    PLAIN_SPONGE_ROWS rows sampled across the matrix (a row's digest reads
+    that row alone), bit for bit; the `*_circle_keccak_air` keys."""
+    from plonky3_tpu_torch.fields.mersenne31 import Mersenne31
+    from plonky3_tpu_torch.hashes import keccak_cuda as kc
+
+    h, w, P = 1 << 18, KECCAK_AIR_WIDTH, Mersenne31.P
+    flat = _rand_words_device(torch, 31, (h, w), P)
+    flat[0] = P - 1
+    flat[1] = 0
+    got = kc.keccak_sponge_rows(flat)
+    g = torch.Generator(device="cuda").manual_seed(32)
+    idx = torch.cat([torch.arange(2, device="cuda"), torch.randint(
+        2, h, (PLAIN_SPONGE_ROWS - 2,), generator=g, device="cuda")])
+    rows = flat.index_select(0, idx)
+    want, plain = once_ms(torch, lambda: kc.keccak_sponge_rows_plain(rows))
+    err = compare(f"sponge m31 {h} {w}", got.index_select(0, idx), want)
+    run = lambda: kc.keccak_sponge_rows(flat)  # noqa: E731
+    ms, ms_src = profiled_ms(torch, run, 10, "sponge_rows_kernel")
+    wall = cuda_ms(torch, run, 10)
+    b = sponge_bound(card, h, w)
+    sh = share(f"sponge m31 {w}", b[0], ms)
+    records["keccak_sponge"].update(at_width(
+        "circle_keccak_air", err, ms, ms_src, wall, plain, b, sh, [h, w]))
+    records["keccak_sponge"]["plain_rows_circle_keccak_air"] = (
+        PLAIN_SPONGE_ROWS)
+    emit({"phase": "kernels", "kernel": "keccak_sponge", "field":
+          "Mersenne31", "h": h, "w": w, "max_abs_err": err,
+          "plain_rows": PLAIN_SPONGE_ROWS, "ms": ms, "ms_source": ms_src,
+          "wall_ms": wall, "plain_ms": plain, "bound_ms": b[0],
+          "bound_by": b[1], "share": sh})
+
+
 def phase_kernels(torch, np, card):
     """Every kernel against its plain version; returns the per-kernel
     records of the main-path shapes."""
@@ -1092,6 +1153,8 @@ def phase_kernels(torch, np, card):
                     rec["share"], [h, w]))
         emit({"phase": "kernels", "kernel": "keccak_sponge", **rec})
         del flat, got, want
+
+    sponge_m31(torch, card, records)
 
     for h in [1 << 17, 1, 3, 1000]:
         left = _rand_words(torch, rng, (h, 8), 1 << 32)
@@ -1467,16 +1530,18 @@ def phase_small(torch, np):
           "verified": sum(len(got) for got in proofs.values()), **secs})
 
 
-def _air_workload(np, name, device, log_n=None, perms=None):
+def _air_workload(np, name, device, log_n=None, perms=None, F=None):
     """(air, trace, public values) of FibonacciAir at 2^log_n rows, of
     Blake3Air or Sha256Air over 2^log_n compressions or of KeccakAir over
     `perms` permutations, the inputs from np.random.default_rng(1) as the
     reference CLI makes them (plonky3_tpu/cli.py:125-156; Sha256Air's as
-    Blake3Air's: 16 block words and 8 state words a row)."""
-    from plonky3_tpu_torch.fields import KoalaBear as F
+    Blake3Air's: 16 block words and 8 state words a row); over F, default
+    KoalaBear."""
+    from plonky3_tpu_torch.fields import KoalaBear
     from plonky3_tpu_torch.models import (blake3_air, fibonacci, keccak_air,
                                           sha256_air)
 
+    F = F or KoalaBear
     if name == "fibonacci":
         trace, publics = fibonacci.generate_fibonacci_trace(F, log_n,
                                                             device=device)
@@ -1892,8 +1957,10 @@ def device_fs_phase(torch, kernels, card, phase, workload, path, stray,
     last of `path`), one device-to-host copy, peak memory, its proof equal
     to prove()'s, warm times of both in turns (`turns_order`; with none,
     the warm fast prove and prove()'s first call are the only times); then the
-    port's verifier on the proof with `probes`, spans, per-proof bounds,
-    synchronizing calls and the profile, each line named after `phase`.
+    port's verifier on the proof with `probes`, spans, per-proof bounds
+    and the profile, each line named after `phase` (the synchronizing
+    calls are counted on the main path only, phase `fast`, for the
+    script's time).
     Returns its launches, per-proof bounds, profiled device time by
     kernel and the recorded launches of one prove."""
     from plonky3_tpu_torch.stark import fast_prover as fp
@@ -1959,11 +2026,6 @@ def device_fs_phase(torch, kernels, card, phase, workload, path, stray,
     per_proof = launch_bounds(card, calls,
                               witnesses + [fri.query_pow_witness])
     emit({"phase": f"{phase}_per_proof", "kernels": per_proof})
-    syncs = sync_calls(torch, lambda: fp._prove_device_fs(config, air,
-                                                          trace, []))
-    emit({"phase": f"{phase}_syncs",
-          "synchronizing_calls": sum(syncs.values()),
-          "by_message": dict(syncs)})
     device_ms = profile_prove(torch, kernels, fp._prove_device_fs, config,
                               air, trace, fast_s, phase=f"{phase}_profile")
     return dict(launches=launches, per_proof=per_proof, device_ms=device_ms,
@@ -2199,16 +2261,16 @@ def phase_babybear(torch, np, kernels, card, merkle):
     return out
 
 
-def phase_cli(torch, babybear):
+def run_cli(torch, args, wanted, phase, info):
     """One run of the port's CLI in its own process, as a user runs it
-    (`python -m plonky3_tpu_torch.cli` with CLI_ARGS, on the card): it
-    exits 0 and prints the objective line, the spans, the `babybear`
-    phase's proof size and the soundness line."""
+    (`python -m plonky3_tpu_torch.cli` with `args`, on the card): it
+    exits 0 and prints the `wanted` lines, the spans and the soundness
+    line. Emits the line `phase` with `info`."""
     import gc
 
     gc.collect()
     torch.cuda.empty_cache()  # the child process needs the card's memory
-    cmd = [sys.executable, "-m", "plonky3_tpu_torch.cli", *CLI_ARGS]
+    cmd = [sys.executable, "-m", "plonky3_tpu_torch.cli", *args]
     t0 = time.perf_counter()
     run = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
                          cwd=Path(__file__).resolve().parent)
@@ -2217,18 +2279,23 @@ def phase_cli(torch, babybear):
     if run.returncode != 0:
         raise AssertionError(f"the CLI exited {run.returncode}:\n"
                              f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
-    size = f"  proof size: {babybear['proof_bytes']} bytes"
-    wanted = ["objective: 1048576 Poseidon2-16 permutations (8/row x 2^17 "
-              "rows, width 2384)", size]
     missing = [w for w in wanted if w not in lines]
     spans = [ln for ln in lines if ln.startswith("  ") and " ms" in ln]
     if (missing or not any("prove (total, run 0)" in ln for ln in spans)
             or not any(re.match(r"  soundness: [\d.]+ bits conjectured, "
                                 r"[\d.]+ proven$", ln) for ln in lines)):
         raise AssertionError(f"the CLI's report lacks {missing}: {lines}")
-    emit({"phase": "cli", "argv": cmd[1:], "rc": run.returncode,
-          "seconds": secs, "proof_bytes": babybear["proof_bytes"],
-          "stdout": lines})
+    emit({"phase": phase, "argv": cmd[1:], "rc": run.returncode,
+          "seconds": secs, **info, "stdout": lines})
+
+
+def phase_cli(torch, babybear):
+    """`run_cli` with CLI_ARGS: the objective line and the `babybear`
+    phase's proof size."""
+    run_cli(torch, CLI_ARGS, [
+        "objective: 1048576 Poseidon2-16 permutations (8/row x 2^17 rows, "
+        "width 2384)", f"  proof size: {babybear['proof_bytes']} bytes"],
+        "cli", {"proof_bytes": babybear["proof_bytes"]})
 
 
 def phase_sha256_air_small(torch, np):
@@ -3283,6 +3350,227 @@ def phase_serde(torch, np, babybear_poseidon2):
           "small_batch_ref_wire_bytes": len(proofs["cuda"][1]), **out})
 
 
+# the circle STARK (M19): its commitments go through the keccak leaf
+# sponge and the ladder (compress_kernel where a tree injects a shorter
+# height); no NTT (Mersenne-31 has no two-adic subgroup: the circle DFT is
+# plain torch), no transcript kernel (prove() runs the host transcript
+# and grinds on the host)
+CIRCLE_PATH = ("keccak_sponge", "keccak_ladder")
+CIRCLE_STRAY = ("ntt_k1", "ntt_k2", "keccak256_chain",
+                "keccak_grind") + P2_KERNELS
+CIRCLE_SMALL_PARAMS = dict(SMALL_PARAMS, max_log_arity=1)
+CIRCLE_CLI_ARGS = ("prove", "--field", "mersenne-31", "--objective",
+                   "keccak-f-permutations", "--log-trace-length", "17",
+                   "--fri", "benchmark")
+MONOLITH_LOG_N = 16  # a cut of depth: the script's time limit
+
+
+def _circle_launches(kernels, phase):
+    """This prove's launches: every kernel of CIRCLE_PATH, none of
+    CIRCLE_STRAY."""
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k in CIRCLE_PATH if launches[k] == 0]
+    launched = [k for k in CIRCLE_STRAY if launches[k]]
+    if missing or launched:
+        raise AssertionError(f"{phase} prove: not launched {missing}, "
+                             f"launched {launched}")
+    return launches
+
+
+def _bump_final_poly(proof, E):
+    fri = proof.opening_proof.fri_proof
+    fri.final_poly[0] = E.add_h(fri.final_poly[0], E.one_h())
+
+
+def _circle_probes(config, air, proof, publics, names):
+    """The port's verifier on `proof` (host time), then on each named
+    change, which must be rejected."""
+    from plonky3_tpu_torch.stark.verifier import verify
+
+    t0 = time.perf_counter()
+    verify(config, air, proof, publics)  # raises on a rejection
+    verify_s = time.perf_counter() - t0
+    changes = {"trace_local": (_bump_trace_value, (
+        "OodEvaluationMismatch", "InvalidOpeningArgument")),
+        # the final polynomial is in the transcript: the query PoW or
+        # the final fold catches it
+        "final_poly": (_bump_final_poly, ("InvalidOpeningArgument",))}
+    tamper = {}
+    for name in names:
+        change, prefixes = changes[name]
+        bad = copy.deepcopy(proof)
+        change(bad, config.E)
+        tamper[name] = rejected(name, lambda: verify(config, air, bad,
+                                                     publics), prefixes)
+    return verify_s, tamper
+
+
+def phase_circle_small(torch, np):
+    """The circle STARK at 256 rows (circle_stark_config, FRI folding by
+    2, 10 queries): FibonacciAir and KeccakAir with 10 permutations,
+    prove() on the card equal to prove() on the CPU (plain versions),
+    every proof verified, and a changed opened value rejected."""
+    from plonky3_tpu_torch.fields.mersenne31 import Mersenne31
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark.config import circle_stark_config
+    from plonky3_tpu_torch.stark.prover import prove
+
+    params = FriParameters(**CIRCLE_SMALL_PARAMS)
+    secs, tamper = {}, {}
+    for name in ("fibonacci", "keccak"):
+        proofs = {}
+        for dev in ("cuda", "cpu"):
+            air, trace, publics = _air_workload(np, name, dev, log_n=8,
+                                                perms=10, F=Mersenne31)
+            config = circle_stark_config(params, device=dev)
+            t0 = time.perf_counter()
+            proof = prove(config, air, trace, publics)
+            torch.cuda.synchronize()
+            secs[f"{name}_{dev}_s"] = time.perf_counter() - t0
+            _, probes = _circle_probes(
+                config, air, proof, publics,
+                ("trace_local",) if dev == "cuda" else ())
+            tamper.update({f"{name}_{k}": v for k, v in probes.items()})
+            proofs[dev] = as_plain(proof)
+        if proofs["cuda"] != proofs["cpu"]:
+            raise AssertionError(f"the circle {name} proof on CUDA "
+                                 f"differs from the CPU's")
+    emit({"phase": "circle_small", "rows": 256, "equal_cuda_cpu": True,
+          "seconds": secs, "tamper": tamper})
+
+
+def phase_circle_keccak_air(torch, np, kernels, card):
+    """The reference CLI's `--field mersenne-31` objective: 5,461
+    keccak-f permutations, a 2^17 x 2,633 KeccakAir trace over
+    Mersenne-31, `cli.build(..., fri="benchmark")`: circle_stark_config
+    (CirclePcs over QM31, the KeccakF Merkle tree), folding by 2, 100
+    queries, 16 PoW bits, proven by prove() (the CLI's stated choice).
+    A cold prove and two warm ones with spans, all equal; the first warm
+    one's launches (sponge and ladder, no NTT, transcript or grind
+    kernel), the second's per-launch events (per-proof bounds); peak
+    memory; the port's verifier accepts and rejects a changed opened
+    value and a changed FRI final polynomial; the profile. Returns
+    launches, per-proof bounds, profiled device time by kernel and the
+    proof's size."""
+    from plonky3_tpu_torch import cli
+    from plonky3_tpu_torch.stark.prover import prove
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    job = cli.build("mersenne-31", "keccak-f-permutations", 17,
+                    fri="benchmark", device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    config, air, trace = job.config, job.air, job.trace
+    params = config.pcs.fri
+    if (trace.shape != (1 << 17, KECCAK_AIR_WIDTH)
+            or cli.chosen_prover(config, "fast") != "host"
+            or (params.max_log_arity, params.num_queries,
+                params.query_proof_of_work_bits) != (1, 100, 16)):
+        raise AssertionError(f"circle KeccakAir job {tuple(trace.shape)} "
+                             f"{params}")
+    timed = timer(torch, config, air, trace)
+    torch.cuda.reset_peak_memory_stats()
+    spans = {"cold": {}, "warm": {}, "warm_events": {}}
+    first, cold_s = timed(prove, spans=spans["cold"])
+    kernels.reset_launches()
+    proof, warm_s = timed(prove, spans=spans["warm"])
+    launches = _circle_launches(kernels, "circle_keccak_air")
+    (traced, warm_events_s), calls = recorded(
+        torch, kernels, lambda: timed(prove, spans=spans["warm_events"]))
+    peak_mem = torch.cuda.max_memory_allocated()
+    if not as_plain(first) == as_plain(proof) == as_plain(traced):
+        raise AssertionError("three circle KeccakAir proves differ")
+    # FRI folds the y-folded 2^17-row first layer down to 2^log_blowup
+    fri = proof.opening_proof.fri_proof
+    rounds = 17 - params.log_blowup - params.log_final_poly_len
+    if (proof.degree_bits != 17 or len(fri.final_poly) != 1
+            or len(fri.commit_phase_commits) != rounds):
+        raise AssertionError(
+            f"the circle KeccakAir proof's shape: degree bits "
+            f"{proof.degree_bits}, {len(fri.commit_phase_commits)} rounds")
+    verify_s, tamper = _circle_probes(config, air, proof, [],
+                                      ("trace_local", "final_poly"))
+    per_proof = launch_bounds(card, calls)
+    emit({"phase": "circle_keccak_air", "rows": 1 << 17,
+          "width": air.width, "perms": (1 << 17) // 24,
+          "trace_gen_s": gen_s, "cold_prove_s": cold_s,
+          "warm_prove_s": warm_s, "warm_events_prove_s": warm_events_s,
+          "perms_per_s": ((1 << 17) // 24) / warm_s,
+          "peak_mem_bytes": peak_mem, "launches": launches,
+          "equal_proofs": 3, "verify_s": verify_s, "tamper": tamper,
+          "proof_bytes": proof.size_in_bytes()})
+    emit({"phase": "circle_keccak_air_spans", "seconds": spans})
+    emit({"phase": "circle_keccak_air_per_proof", "kernels": per_proof})
+    device_ms = profile_prove(torch, kernels, prove, config, air, trace,
+                              warm_s, phase="circle_keccak_air_profile")
+    return dict(launches=launches, per_proof=per_proof, device_ms=device_ms,
+                proof_bytes=proof.size_in_bytes())
+
+
+def phase_monolith_air(torch, np, kernels, card):
+    """MonolithAir at its full width (3,520 columns) over 2^16
+    permutations (the depth cut to 2^MONOLITH_LOG_N rows for the
+    script's time; inputs from np.random.default_rng(1)), the trace
+    generated on the card, under circle_stark_config(new_benchmark()):
+    a cold and a warm prove (spans; the cold one with per-launch
+    events), equal; launches, peak memory, verified, a changed opened
+    value rejected. Returns launches and per-proof bounds."""
+    from plonky3_tpu_torch.fields.mersenne31 import Mersenne31 as F
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.models.monolith_air import (
+        NUM_MONOLITH_COLS, MonolithAir, generate_monolith_trace)
+    from plonky3_tpu_torch.stark.config import circle_stark_config
+    from plonky3_tpu_torch.stark.prover import prove
+
+    n = 1 << MONOLITH_LOG_N
+    inputs = np.random.default_rng(1).integers(
+        0, F.P, size=(n, 16), dtype=np.uint64).astype(np.uint32)
+    t0 = time.perf_counter()
+    trace = generate_monolith_trace(F, inputs, device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if trace.shape != (n, NUM_MONOLITH_COLS):
+        raise AssertionError(f"MonolithAir trace {tuple(trace.shape)}")
+    air = MonolithAir(F)
+    config = circle_stark_config(FriParameters.new_benchmark(),
+                                 device="cuda")
+    timed = timer(torch, config, air, trace)
+    torch.cuda.reset_peak_memory_stats()
+    spans = {"cold": {}, "warm": {}}
+    (first, cold_s), calls = recorded(
+        torch, kernels, lambda: timed(prove, spans=spans["cold"]))
+    kernels.reset_launches()
+    proof, warm_s = timed(prove, spans=spans["warm"])
+    launches = _circle_launches(kernels, "monolith_air")
+    peak_mem = torch.cuda.max_memory_allocated()
+    if as_plain(first) != as_plain(proof):
+        raise AssertionError("two MonolithAir proves differ")
+    verify_s, tamper = _circle_probes(config, air, proof, [],
+                                      ("trace_local",))
+    per_proof = launch_bounds(card, calls)
+    emit({"phase": "monolith_air", "rows": n, "width": air.width,
+          "perms": n, "cut": f"depth 2^{MONOLITH_LOG_N} rows",
+          "trace_gen_s": gen_s, "cold_events_prove_s": cold_s,
+          "warm_prove_s": warm_s, "perms_per_s": n / warm_s,
+          "peak_mem_bytes": peak_mem, "launches": launches,
+          "equal_proofs": 2, "verify_s": verify_s, "tamper": tamper,
+          "proof_bytes": proof.size_in_bytes(), "spans": spans})
+    emit({"phase": "monolith_air_per_proof", "kernels": per_proof})
+    return dict(launches=launches, per_proof=per_proof, device_ms={})
+
+
+def phase_cli_circle(torch, circle):
+    """`run_cli` with CIRCLE_CLI_ARGS: the objective line, the stated
+    prover (prove()) and the circle_keccak_air phase's proof size (the
+    same inputs and config)."""
+    run_cli(torch, CIRCLE_CLI_ARGS, [
+        "objective: 5461 keccak-f[1600] permutations (24 rows each, width "
+        "2633)", "prover: host",
+        f"  proof size: {circle['proof_bytes']} bytes"], "cli_circle",
+        {"log_trace_length": 17, "proof_bytes": circle["proof_bytes"]})
+
+
 def host_cpu() -> str:
     """The first CPU's model name with its vendor, family, model and
     clock from /proc/cpuinfo (where the name reads "unknown", family
@@ -3505,6 +3793,12 @@ def main(argv=None) -> int:
     inter = timed("interaction", phase_interaction, torch, np, kernels,
                   card)
     timed("serde", phase_serde, torch, np, bbp2)
+    timed("circle_small", phase_circle_small, torch, np)
+    circle = timed("circle_keccak_air", phase_circle_keccak_air, torch, np,
+                   kernels, card)
+    mono = timed("monolith_air", phase_monolith_air, torch, np, kernels,
+                 card)
+    timed("cli_circle", phase_cli_circle, torch, circle)
     # launches, proof_* : the main path (the fast prover) of the kernel's
     # config, keccak or (the duplex transcript's kernels) Poseidon2, and
     # for BabyBear's duplex kernels (<21, 7>, `*_babybear`) the BabyBear
@@ -3519,7 +3813,10 @@ def main(argv=None) -> int:
     # on the Poseidon1 path's Poseidon2 config; *_zk_air: K1, K2 and the
     # <23, 3> grind on the ZK KeccakAir path (prove(), zk_stark_config);
     # *_batch: the keccak kernels, K1 and K2 in the batch proof (keccak
-    # config; compress_kernel's only per-proof line). proof_ms: the kernel's
+    # config; compress_kernel's only per-proof line); *_circle_keccak_air,
+    # *_monolith_air: the sponge, ladder and compress kernels (launches, 0
+    # where none) in the circle proofs (prove(), circle_stark_config:
+    # 2^17 x 2,633 KeccakAir, 2^16 x 3,520 MonolithAir). proof_ms: the kernel's
     # launches of one prove timed by CUDA events; proof_profiled_ms: by
     # torch.profiler, where it recorded every launch. Every per-proof
     # share goes through share().
@@ -3550,7 +3847,10 @@ def main(argv=None) -> int:
         for key, got, path in (("_zk_air", zk, ZK_PATH),
                                ("_batch", bt, BATCH_PATH),
                                ("_batch_ref", bref, BATCH_REF_PATH),
-                               ("_interaction", inter, INTERACTION_PATH)):
+                               ("_interaction", inter, INTERACTION_PATH),
+                               ("_circle_keccak_air", circle,
+                                KECCAK_KERNELS[:3]),
+                               ("_monolith_air", mono, KECCAK_KERNELS[:3])):
             if name in path:
                 paths.append((key, got))
                 rec[f"launches{key}"] = got["launches"][name]

@@ -4,7 +4,9 @@ Port of `plonky3_tpu/challenger/serializing.py`
 (challenger/src/serializing_challenger.rs:25, hash_challenger.rs:10):
 
   observe(F):   LE bytes of the Montgomery form (monty_31.rs:688)
-  observe u64 digests: 8 u32 words as LE bytes
+  observe u64 digests: 8 u32 words as LE bytes; with digest_bytes
+                (the circle fixtures' [u8; 32] keccak-256 digests), one
+                raw byte a digest word
   flush():      digest = keccak256(input_buffer); the digest becomes the
                 new input buffer and the output buffer
   sample byte:  pop from the end of the output buffer
@@ -23,8 +25,9 @@ from ..hashes.keccak import keccak256, keccak256_np_batch
 
 
 class SerializingChallenger32:
-    def __init__(self, F):
+    def __init__(self, F, digest_bytes: bool = False):
         self.F = F
+        self.digest_bytes = digest_bytes
         self.input_buffer = bytearray()
         self.output_buffer = []  # bytes as ints; sampled from the end
 
@@ -53,13 +56,17 @@ class SerializingChallenger32:
         self.input_buffer += self.F.to_monty_np(v).astype("<u4").tobytes()
 
     def observe_digest(self, values):
-        """A digest of 8 u32 words (4 LE u64 lanes), or a Merkle cap (a
-        sequence of digests, observed in order)."""
-        if values and isinstance(values[0], (tuple, list)):
+        """A digest of 8 u32 words (4 LE u64 lanes) or of 32 bytes
+        (digest_bytes), or a Merkle cap (a sequence of digests, observed
+        in order)."""
+        if values and isinstance(values[0], (tuple, list, bytes)):
             for d in values:
                 self.observe_digest(d)
             return
         self.output_buffer.clear()
+        if self.digest_bytes:
+            self.input_buffer += bytes(int(v) & 0xFF for v in values)
+            return
         for v in values:
             self.input_buffer += (int(v) & 0xFFFFFFFF).to_bytes(4, "little")
 
@@ -107,6 +114,9 @@ class SerializingChallenger32:
             return 0
         prefix = bytes(self.input_buffer)
         mask = np.uint32((1 << bits) - 1)
+        # a batch of 16·2^bits candidates holds a witness but for e^-16 of
+        # the time; the scan goes in order, so the witness is the smallest
+        batch = min(batch, 1 << (bits + 4))
         start = 0
         while start < self.F.P:
             n = min(batch, self.F.P - start)

@@ -14,9 +14,16 @@ bits. `build` makes the (config, AIR, trace, public values) of a run and
 `run` proves, verifies and reports it; `chip_smoke.py` proves through
 `build` what this command proves.
 
-Not ported yet: `--field mersenne-31` (the circle path) and the
-`pcs-comparison` command (FRI against STIR and WHIR); both raise
-NotImplementedError.
+`--field mersenne-31` proves under `circle_stark_config` (the circle PCS
+over QM31, the KeccakF Merkle tree, SerializingChallenger32), whatever
+`--merkle-hash` says, as the reference does; its FRI must fold by 2
+(`--fri testing` or `benchmark`). The device-transcript prover covers the
+two-adic PCS only, so a circle run proves with `prove()` and says so.
+`poseidon-2-permutations` over Mersenne-31 fails as the reference's does:
+there are no Poseidon2 constants for it.
+
+Not ported yet: the `pcs-comparison` command (FRI against STIR and WHIR),
+which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,12 +46,13 @@ PROVERS = ("host", "fast")
 def field_pair(name):
     """(base field, degree-4 extension) of a `--field` value."""
     from .fields import BabyBear, BabyBearExt4, KoalaBear, KoalaBearExt4
+    from .fields.mersenne31 import Mersenne31
+    from .fields.qm31 import QM31
 
-    if name == "mersenne-31":
-        raise NotImplementedError("--field mersenne-31 needs the circle "
-                                  "path, which is not ported yet (M19)")
     return {"koala-bear": (KoalaBear, KoalaBearExt4),
-            "baby-bear": (BabyBear, BabyBearExt4)}[name]
+            "baby-bear": (BabyBear, BabyBearExt4),
+            "mersenne-31": (Mersenne31, QM31)}[name]
+
 
 
 def fri_params(name):
@@ -104,13 +112,21 @@ def build(field="koala-bear", objective="poseidon-2-permutations",
     generation is timed into `spans` (a `Spans`) when given."""
     from . import default_device
     from .compat import trace_inputs_from_numpy
-    from .stark.config import keccak_stark_config, poseidon2_stark_config
+    from .stark.config import (circle_stark_config, keccak_stark_config,
+                               poseidon2_stark_config)
 
     dev = default_device(device)
     F, E = field_pair(field)
-    make_config = {"poseidon2": poseidon2_stark_config,
-                   "keccak-f": keccak_stark_config}[merkle_hash]
-    config = make_config(F, E, fri_params(fri), device=dev)
+    if field == "mersenne-31":
+        fp = fri_params(fri)
+        if fp.max_log_arity != 1:
+            raise ValueError("circle FRI folds by 2: use --fri testing or "
+                             "benchmark")
+        config = circle_stark_config(fp, device=dev)
+    else:
+        make_config = {"poseidon2": poseidon2_stark_config,
+                       "keccak-f": keccak_stark_config}[merkle_hash]
+        config = make_config(F, E, fri_params(fri), device=dev)
     spans = spans or Spans(dev)
     log_n = log_trace_length
     rng = np.random.default_rng(1)
@@ -184,19 +200,34 @@ def soundness_bits(config, air, log_n):
             proven_security(regime, air_params, shape))
 
 
+def chosen_prover(config, prover="host") -> str:
+    """The prover a run takes: `fast` (the device transcript) covers the
+    two-adic PCS only, so a circle config proves with `host`."""
+    from .circle_pcs import CirclePcs
+
+    return "host" if isinstance(config.pcs, CirclePcs) else prover
+
+
 def run(job: Job, prover="host", repeat=1, spans=None):
     """Prove `job` `repeat` times with the host-transcript prover
-    (`host`) or the device-transcript one (`fast`), verify the last proof
-    on the host, and print the report. Returns the proof."""
+    (`host`) or the device-transcript one (`fast`; `chosen_prover`),
+    verify the last proof on the host, and print the report. Returns the
+    proof."""
     from .stark.verifier import verify
 
-    if prover == "fast":
+    chosen = chosen_prover(job.config, prover)
+    if chosen == "fast":
         from .stark.fast_prover import prove_fast as prove
     else:
         from .stark.prover import prove
     spans = spans or Spans(job.config.device)
     if job.objective:
         print(job.objective)
+    if chosen != prover:
+        print(f"prover: {chosen} (prove(); the device-transcript prover "
+              f"covers the two-adic PCS only)")
+    else:
+        print(f"prover: {chosen}")
     for rep in range(repeat):
         phase = {}
         with spans.span(f"prove (total, run {rep})"):

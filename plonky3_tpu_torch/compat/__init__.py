@@ -22,12 +22,17 @@ _FRI_FIELDS = ("log_blowup", "log_final_poly_len", "max_log_arity",
                "query_proof_of_work_bits")
 
 
-def trace_inputs_from_numpy(arr_u32: np.ndarray, device) -> torch.Tensor:
-    """Montgomery-form uint32 permutation inputs (as `rand_np` makes them)
-    -> an int64 tensor on `device`."""
+def trace_inputs_from_numpy(arr_u32: np.ndarray, device,
+                            F=None) -> torch.Tensor:
+    """uint32 field words -> an int64 tensor on `device`: a Monty31
+    field's Montgomery form (as `rand_np` makes them), or Mersenne-31's
+    canonical words, its wire form (a trace or permutation inputs).
+    With `F`, every word must be below F.P."""
     arr = np.asarray(arr_u32)
     if arr.dtype != np.uint32:
         raise ValueError(f"expected uint32 words, got {arr.dtype}")
+    if F is not None and arr.size and int(arr.max()) >= F.P:
+        raise ValueError(f"a word >= {F.name}'s P: not a canonical word")
     return torch.from_numpy(arr.astype(np.int64)).to(device)
 
 
@@ -48,14 +53,21 @@ def field_from(obj):
     constants of another package's field object: matched by name, and
     every normative constant must agree (ValueError otherwise)."""
     from .. import fields
+    from ..fields.mersenne31 import M31Ext3, Mersenne31
+    from ..fields.qm31 import QM31
 
     base = getattr(obj, "base", None)
-    if base is not None:  # a binomial extension
+    if getattr(obj, "name", None) == "QM31":  # CM31[u], no binomial data
+        port, keys = QM31, ("D",)
+    elif base is not None:  # a binomial extension
         port = {("KoalaBear", 4): fields.KoalaBearExt4,
                 ("KoalaBear", 8): fields.KoalaBearExt8,
                 ("BabyBear", 4): fields.BabyBearExt4,
-                ("BabyBear", 8): fields.BabyBearExt8}.get((base.name, obj.D))
+                ("BabyBear", 8): fields.BabyBearExt8,
+                ("Mersenne31", 3): M31Ext3}.get((base.name, obj.D))
         keys = ("D", "W", "DTH_ROOT", "EXT_GENERATOR", "EXT_TWO_ADICITY")
+    elif getattr(obj, "name", None) == "Mersenne31":
+        port, keys = Mersenne31, ("P", "TWO_ADICITY", "GENERATOR")
     else:
         port = {"KoalaBear": fields.KoalaBear,
                 "BabyBear": fields.BabyBear}.get(getattr(obj, "name", None))

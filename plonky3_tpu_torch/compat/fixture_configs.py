@@ -11,8 +11,13 @@ max_log_arity 1, 2 queries, commit and query PoW 1 bit}. Their proofs
 are the golden fixtures.
 
 `FIXTURE_*` are the fixture files' paths inside a checkout of the
-reference (Plonky3). The files are not in this repository. The circle
-configs are over Mersenne31 and come with the circle PCS (M19).
+reference (Plonky3). The files are not in this repository.
+
+The circle configs mirror `fib_air.rs:200-233` and `make_circle_config`
+(simple.rs): Mersenne31 with its cubic extension, Keccak256 byte digests
+(`hashes/keccak256_mmcs.py`, hashed on the host as the reference does),
+SerializingChallenger32 observing a digest's raw bytes, and FRI
+{log_blowup 1, final polynomial 1, arity 2, 40 queries}.
 """
 
 from __future__ import annotations
@@ -80,17 +85,36 @@ def batch_two_adic_fixture_config(device=None) -> StarkConfig:
     return _fixture_config(777, 2, 1, device)
 
 
-def circle_fixture_config():
-    """The circle golden-fixture config (fib_air.rs:200-233): Mersenne31
-    and its cubic extension, Keccak256 byte digests. Not ported yet."""
-    raise NotImplementedError(
-        "the circle fixture config needs Mersenne31 and the circle PCS "
-        "(ROADMAP M19)")
+def _circle_config(cap_height, commit_pow_bits, device):
+    from ..challenger.serializing import SerializingChallenger32
+    from ..circle_pcs import CirclePcs
+    from ..fields.mersenne31 import M31Ext3, Mersenne31
+    from ..hashes.keccak256_mmcs import (Keccak256Compressor,
+                                         Keccak256FieldHasher)
+
+    mmcs = MerkleTreeMmcs(sponge=Keccak256FieldHasher(Mersenne31),
+                          compressor=Keccak256Compressor(),
+                          cap_height=cap_height)
+    fri = FriParameters(
+        log_blowup=1, log_final_poly_len=0, max_log_arity=1,
+        num_queries=40, commit_proof_of_work_bits=commit_pow_bits,
+        query_proof_of_work_bits=8)
+    pcs = CirclePcs(fri=fri, mmcs=mmcs,
+                    fri_mmcs=ExtensionMmcs(inner=mmcs, D=M31Ext3.D),
+                    ext=M31Ext3)
+    return StarkConfig(
+        pcs=pcs, device=default_device(device), challenger_kind="keccak",
+        challenger_factory=lambda: SerializingChallenger32(
+            Mersenne31, digest_bytes=True))
 
 
-def batch_circle_fixture_config():
-    """make_circle_config (simple.rs): Mersenne31, cap height 3. Not
-    ported yet."""
-    raise NotImplementedError(
-        "the batch circle fixture config needs Mersenne31 and the circle "
-        "PCS (ROADMAP M19)")
+def circle_fixture_config(device=None) -> StarkConfig:
+    """The circle golden-fixture config (fib_air.rs:200-233): commit PoW
+    0 bits, query PoW 8; on `device` (default cuda)."""
+    return _circle_config(0, 0, device)
+
+
+def batch_circle_fixture_config(device=None) -> StarkConfig:
+    """make_circle_config (batch-stark/tests/simple.rs): a Merkle cap of
+    height 3, commit and query PoW 8 bits; on `device` (default cuda)."""
+    return _circle_config(3, 8, device)

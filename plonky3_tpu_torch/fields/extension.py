@@ -161,6 +161,9 @@ class BinomialExtension:
     def sub(self, a, b):
         return self.base.sub(a, b)
 
+    def neg(self, a):
+        return self.base.sub(0, a)
+
     def mul(self, a, b):
         a, b = torch.broadcast_tensors(a, b)
         return _ext_mul(self.base, self.D, self.W, a, b, _torch_stack)

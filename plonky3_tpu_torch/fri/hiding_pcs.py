@@ -59,6 +59,9 @@ class HidingFriPcs:
     def mmcs(self):
         return self.inner.mmcs
 
+    def log_max_lde_height(self) -> int:
+        return self.inner.log_max_lde_height()
+
     def natural_domain_for_degree(self, degree: int):
         return self.inner.natural_domain_for_degree(degree)
 

@@ -55,15 +55,38 @@ def fold_matrix(E, folded, beta_host, log_arity: int):
     return folded
 
 
+class TwoAdicFriFolding:
+    """The default folding (fri/src/two_adic_pcs.rs fold_matrix): arity
+    2^k folds of bit-reversed codewords over two-adic cosets; the arity
+    schedule is observed (prover.rs:103) and each rolled-in input scaled
+    by beta^arity (prover.rs:258-265)."""
+
+    extra_query_index_bits = 0
+    observe_arity_schedule = True
+    scale_roll_in = True
+
+    def __init__(self, E):
+        self.E = E
+
+    def fold_matrix(self, folded, beta, log_arity):
+        return fold_matrix(self.E, folded, beta, log_arity)
+
+    def idft_final(self, evals):
+        return idft(self.E.base, evals)
+
+
 def prove_fri(E, params: FriParameters, fri_mmcs, inputs: list, challenger,
               log_global_max_height: int, open_input_fn,
-              spans=None) -> FriProof:
+              spans=None, folding=None) -> FriProof:
     """inputs: (h, D) int64 codewords, heights strictly decreasing;
     open_input_fn(indices, batcher) registers the input openings and
-    returns their finisher. spans: see stark.prover.prove."""
+    returns their finisher. spans: see stark.prover.prove. folding:
+    default `TwoAdicFriFolding`."""
     from ..merkle.mmcs import PullBatcher
 
     F = E.base
+    if folding is None:
+        folding = TwoAdicFriFolding(E)
     if not inputs or params.num_queries <= 0 or params.max_log_arity <= 0:
         raise ValueError("FRI needs inputs, queries and a positive arity")
     if log_global_max_height != log2_strict(inputs[0].shape[0]):
@@ -87,14 +110,17 @@ def prove_fri(E, params: FriParameters, fri_mmcs, inputs: list, challenger,
         pow_witnesses.append(
             challenger.grind(params.commit_proof_of_work_bits))
         beta = challenger.sample_ext(E.D)
-        folded = fold_matrix(E, folded, beta, log_arity)
+        folded = folding.fold_matrix(folded, beta, log_arity)
         datas.append(data)
         if rest and rest[0].shape[0] == folded.shape[0]:
-            beta_pow = beta
-            for _ in range(log_arity):
-                beta_pow = E.mul_h(beta_pow, beta_pow)
-            folded = F.add(folded, E.mul(rest.pop(0),
-                                         E.const(beta_pow, folded.device)))
+            if folding.scale_roll_in:
+                beta_pow = beta
+                for _ in range(log_arity):
+                    beta_pow = E.mul_h(beta_pow, beta_pow)
+                folded = F.add(folded, E.mul(
+                    rest.pop(0), E.const(beta_pow, folded.device)))
+            else:
+                folded = F.add(folded, rest.pop(0))
 
     mark("fri: commit phase")
     # final polynomial (prover.rs:271): the bitrev prefix is the
@@ -102,25 +128,27 @@ def prove_fri(E, params: FriParameters, fri_mmcs, inputs: list, challenger,
     L = params.final_poly_len
     final_evals = folded[:L]
     if L > 1:
-        final_evals = idft(F, bitrev_permute_axis0(final_evals,
-                                                   log2_strict(L)))
+        final_evals = folding.idft_final(bitrev_permute_axis0(
+            final_evals, log2_strict(L)))
     fc = F.from_monty_np(final_evals.cpu().numpy())
     final_poly = [tuple(int(c) for c in row) for row in fc]
     for coeff in final_poly:
         challenger.observe_ext(coeff)
-    for la in log_arities:  # bind the arity schedule (prover.rs:103)
-        challenger.observe(la)
+    if folding.observe_arity_schedule:  # prover.rs:103
+        for la in log_arities:
+            challenger.observe(la)
 
     mark("fri: final poly")
     query_pow = challenger.grind(params.query_proof_of_work_bits)
-    indices = [challenger.sample_bits(log_global_max_height)
+    extra = folding.extra_query_index_bits
+    indices = [challenger.sample_bits(log_global_max_height + extra)
                for _ in range(params.num_queries)]
     mark("fri: grind + indices")
 
     batcher = PullBatcher()
     input_finish = open_input_fn(indices, batcher)
-    steps_finish = _answer_queries(fri_mmcs, log_arities, datas, indices,
-                                   batcher)
+    steps_finish = _answer_queries(fri_mmcs, log_arities, datas,
+                                   [i >> extra for i in indices], batcher)
     batcher.flush()
     proof = FriProof(
         commit_phase_commits=commits,

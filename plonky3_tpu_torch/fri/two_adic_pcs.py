@@ -93,6 +93,10 @@ class TwoAdicFriPcs:
     def natural_domain_for_degree(self, degree: int) -> TwoAdicCoset:
         return TwoAdicCoset(self.F, 1, log2_strict(degree))
 
+    def log_max_lde_height(self) -> int:
+        """The largest LDE: the field's two-adicity."""
+        return self.F.TWO_ADICITY
+
     def commit(self, evaluations):
         """evaluations: an iterable of (TwoAdicCoset, (n, w) natural-order
         tensor); each is let go once its LDE is taken."""

@@ -14,9 +14,11 @@ fold_row (two_adic_pcs.rs:109-131): Lagrange-interpolate the sibling group
 at beta over the points {s·w^j} in bit-reversed order,
 s = g_{h·a}^{rev(parent)}.
 
-The reference's hooks for other folding schemes (a folding object with
-extra index bits and its own row fold, a pre-sampled alpha, an opening
-callback, no height check: the circle PCS) come with those schemes.
+Another folding scheme (the circle PCS's) comes as `folding`, with its
+own `fold_row`, `extra_query_index_bits`, `observe_arity_schedule` and
+`scale_roll_in`; such a PCS samples alpha itself (`alpha`), reduces the
+openings itself (`open_inputs_fn(indices)` -> per query [(log_h,
+ext)]), and checks its own height bound (`check_global_height=False`).
 """
 
 from __future__ import annotations
@@ -72,15 +74,32 @@ def fold_row_host(E, index, log_height, log_arity, beta, evals):
     return _lagrange_interpolate_at(E, xs, evals, beta)
 
 
+class TwoAdicRowFolding:
+    """The verifier's default folding (two_adic_pcs.rs fold_row)."""
+
+    extra_query_index_bits = 0
+    observe_arity_schedule = True
+    scale_roll_in = True
+
+    def fold_row(self, E, index, log_folded, log_arity, beta, group):
+        return fold_row_host(E, index, log_folded, log_arity, beta, group)
+
+
 def verify_fri(E, params: FriParameters, proof: FriProof, challenger,
-               commitments_with_opening_points, input_mmcs, fri_mmcs):
+               commitments_with_opening_points, input_mmcs, fri_mmcs,
+               folding=None, open_inputs_fn=None, alpha=None,
+               check_global_height=True):
     """commitments_with_opening_points: [(commitment, [(domain,
     [(z, ys)])])], the reference's CommitmentWithOpeningPoints with a
-    TwoAdicCoset for each matrix. Raises FriError."""
+    TwoAdicCoset for each matrix (None with `open_inputs_fn`). Raises
+    FriError."""
     F = E.base
+    if folding is None:
+        folding = TwoAdicRowFolding()
     if params.num_queries == 0:
         raise FriError("ZeroQueries")
-    alpha = challenger.sample_ext(E.D)
+    if alpha is None:
+        alpha = challenger.sample_ext(E.D)
 
     rounds = len(proof.commit_phase_commits)
     if len(proof.commit_phase_steps) != rounds:
@@ -98,12 +117,12 @@ def verify_fri(E, params: FriParameters, proof: FriProof, challenger,
 
     log_global_max_height = (sum(log_arities) + params.log_blowup
                              + params.log_final_poly_len)
-    if log_global_max_height > F.TWO_ADICITY:
+    if check_global_height and log_global_max_height > F.TWO_ADICITY:
         raise FriError("GlobalMaxHeightTooLarge")
     committed_heights = [dom.log_n + params.log_blowup
                          for (_, mats) in commitments_with_opening_points
-                         for (dom, _) in mats]
-    if (committed_heights
+                         or [] for (dom, _) in mats]
+    if (check_global_height and committed_heights
             and max(committed_heights) != log_global_max_height):
         raise FriError("GlobalMaxHeightMismatch")
     if len(proof.commit_pow_witnesses) != rounds:
@@ -122,18 +141,23 @@ def verify_fri(E, params: FriParameters, proof: FriProof, challenger,
         raise FriError("FinalPolyLengthMismatch")
     for coeff in proof.final_poly:
         challenger.observe_ext(coeff)
-    for la in log_arities:
-        challenger.observe(la)
+    if folding.observe_arity_schedule:
+        for la in log_arities:
+            challenger.observe(la)
     if not challenger.check_witness(params.query_proof_of_work_bits,
                                     proof.query_pow_witness):
         raise FriError("InvalidPowWitness (query)")
 
     log_final_height = params.log_blowup + params.log_final_poly_len
-    indices = [challenger.sample_bits(log_global_max_height)
+    extra = folding.extra_query_index_bits
+    indices = [challenger.sample_bits(log_global_max_height + extra)
                for _ in range(params.num_queries)]
-    reduced_openings = _open_inputs(
-        E, params, log_global_max_height, indices, proof.input_openings,
-        alpha, input_mmcs, commitments_with_opening_points)
+    if open_inputs_fn is not None:
+        reduced_openings = open_inputs_fn(indices)
+    else:
+        reduced_openings = _open_inputs(
+            E, params, log_global_max_height, indices, proof.input_openings,
+            alpha, input_mmcs, commitments_with_opening_points)
 
     # fold chains; each round's opened groups are authenticated together
     # after the loop, one batched Merkle check a round
@@ -144,7 +168,7 @@ def verify_fri(E, params: FriParameters, proof: FriProof, challenger,
             raise FriError("InitialReducedOpeningHeightMismatch")
         ro = list(ro)
         folded_eval = ro.pop(0)[1]
-        domain_index = index
+        domain_index = index >> extra
         log_current = log_global_max_height
         for r, (beta, log_arity, step) in enumerate(
                 zip(betas, log_arities, proof.commit_phase_steps)):
@@ -154,17 +178,19 @@ def verify_fri(E, params: FriParameters, proof: FriProof, challenger,
                      for j in range(1 << log_arity)]
             log_folded = log_current - log_arity
             domain_index >>= log_arity
-            folded_eval = fold_row_host(E, domain_index, log_folded,
-                                        log_arity, beta, group)
+            folded_eval = folding.fold_row(E, domain_index, log_folded,
+                                           log_arity, beta, group)
             round_groups[r].append([group])
             round_indices[r].append(domain_index)
             log_current = log_folded
             if ro and ro[0][0] == log_folded:
-                beta_pow = beta
-                for _ in range(log_arity):
-                    beta_pow = E.mul_h(beta_pow, beta_pow)
-                folded_eval = E.add_h(folded_eval,
-                                      E.mul_h(beta_pow, ro.pop(0)[1]))
+                rolled = ro.pop(0)[1]
+                if folding.scale_roll_in:
+                    beta_pow = beta
+                    for _ in range(log_arity):
+                        beta_pow = E.mul_h(beta_pow, beta_pow)
+                    rolled = E.mul_h(beta_pow, rolled)
+                folded_eval = E.add_h(folded_eval, rolled)
         if log_current != log_final_height:
             raise FriError("FinalFoldHeightMismatch")
         if ro:

@@ -20,10 +20,16 @@ class ExtensionMmcs:
     D: int
 
     def commit_ext_matrix(self, mat) -> MerkleProverData:
-        h, w, d = mat.shape
-        if d != self.D:
-            raise ValueError(f"expected {self.D} components, got {d}")
-        return self.inner.commit([mat.reshape(h, w * d)])
+        return self.commit_ext_matrices([mat])
+
+    def commit_ext_matrices(self, mats) -> MerkleProverData:
+        """(h, w, D) extension matrices in one tree (several: the circle
+        PCS's first layer)."""
+        for m in mats:
+            if m.shape[2] != self.D:
+                raise ValueError(f"expected {self.D} components, got "
+                                 f"{m.shape[2]}")
+        return self.inner.commit([m.reshape(m.shape[0], -1) for m in mats])
 
     def _regroup(self, rows_pq):
         D = self.D

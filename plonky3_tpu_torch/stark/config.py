@@ -1,6 +1,6 @@
 """StarkConfig (uni-stark/src/config.rs:24,49), the two benchmark
-configs of the reference (examples/src/types.rs:19-62) and its ZK config,
-ported from `plonky3_tpu/stark/config.py`."""
+configs of the reference (examples/src/types.rs:19-62), its ZK config and
+its Mersenne-31 circle config, ported from `plonky3_tpu/stark/config.py`."""
 
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from ..merkle.mmcs import MerkleTreeMmcs
 
 @dataclass(frozen=True)
 class StarkConfig:
-    pcs: TwoAdicFriPcs  # or HidingFriPcs
+    pcs: TwoAdicFriPcs  # or HidingFriPcs, or CirclePcs
     device: object  # torch.device the config proves on
     # the Fiat-Shamir transcript: "duplex" (DuplexChallenger over
     # Poseidon2-24, field digests) or "keccak" (SerializingChallenger32
@@ -109,3 +109,25 @@ def zk_stark_config(F, E, fri_params: FriParameters, seed: int = 0,
     pcs = HidingFriPcs(inner=inner,
                        num_random_codewords=num_random_codewords, rng=rng)
     return StarkConfig(pcs=pcs, device=default_device(device))
+
+
+def circle_stark_config(fri_params: FriParameters,
+                        device=None) -> StarkConfig:
+    """The Mersenne-31 circle STARK config (the reference CLI's
+    `--field mersenne-31`): CirclePcs over QM31 with the KeccakF Merkle
+    tree of `keccak_stark_config` and SerializingChallenger32, on
+    `device` (default cuda). Circle FRI folds by 2 and ends in a constant
+    (fri/src/config.rs:12): max_log_arity 1, log_final_poly_len 0."""
+    from ..circle_pcs import CirclePcs
+    from ..fields.mersenne31 import Mersenne31
+    from ..fields.qm31 import QM31
+
+    if fri_params.max_log_arity != 1 or fri_params.log_final_poly_len != 0:
+        raise ValueError("circle FRI needs max_log_arity 1 and "
+                         "log_final_poly_len 0")
+    mmcs = MerkleTreeMmcs(sponge=KeccakFieldSponge(Mersenne31),
+                          compressor=KeccakCompressor())
+    pcs = CirclePcs(fri=fri_params, mmcs=mmcs,
+                    fri_mmcs=ExtensionMmcs(inner=mmcs, D=QM31.D))
+    return StarkConfig(pcs=pcs, device=default_device(device),
+                       challenger_kind="keccak")

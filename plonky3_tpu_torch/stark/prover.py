@@ -96,6 +96,13 @@ def periodic_on_coset(F, pcols, trace_domain, quotient_domain, device):
     so one small coset evaluation tiles the domain."""
     if not pcols:
         return None
+    if not isinstance(quotient_domain.shift, int):
+        # a circle domain's shift is a point: the reference's two-adic
+        # evaluation fails there too (a periodic column's period needs
+        # a two-adic generator, which Mersenne-31 lacks)
+        raise NotImplementedError(
+            "periodic columns need a two-adic coset; the circle STARK has "
+            "none")
     n, nq = trace_domain.size, quotient_domain.size
     cols = []
     for col in pcols:

@@ -116,7 +116,11 @@ def verify(config: StarkConfig, air: BaseAir, proof: Proof, public_values):
 
         return verify_zk(config, air, proof, public_values)
     log_n = proof.degree_bits
-    if log_n > F.TWO_ADICITY - pcs.fri.log_blowup:
+    # the PCS's largest LDE where it says (the circle group's 30), else
+    # the two-adicity (the reference's rule, stark/verifier.py:55-56)
+    log_max = getattr(pcs, "log_max_lde_height", None)
+    log_max = log_max() if log_max else F.TWO_ADICITY
+    if log_n > log_max - pcs.fri.log_blowup:
         raise InvalidProofShape("InvalidProofShape: degree too large")
     n = 1 << log_n
     num_chunks = 1 << get_log_num_quotient_chunks(air)

@@ -7,9 +7,10 @@ and a small poseidon-2-permutations run, over both fields and both Merkle
 hashes, prints the reference's objective line, its proof size (the
 reference `Proof.size_in_bytes` of the port's proof, which equals the
 reference's proof where the other tests compare them, and here once
-against a reference prove) and its soundness bits; the unported field and
-command raise NotImplementedError; without a card the default device
-exits with an error; and importing the CLI imports no JAX.
+against a reference prove) and its soundness bits; Mersenne-31 refuses
+the default FRI (arity 8) and has no Poseidon2 constants, and the
+unported command raises NotImplementedError; without a card the default
+device exits with an error; and importing the CLI imports no JAX.
 """
 
 import itertools
@@ -145,8 +146,15 @@ def test_prove_equals_reference_proof(capsys):
 
 
 def test_unported_field_and_command_raise():
-    with pytest.raises(NotImplementedError, match="M19"):
+    # the default FRI folds by 8, which circle FRI refuses (the
+    # reference asserts max_log_arity == 1), and Poseidon2 has no
+    # Mersenne-31 constants
+    with pytest.raises(ValueError, match="folds by 2"):
         cli.main(["prove", "--field", "mersenne-31", "--device", "cpu"])
+    with pytest.raises(NotImplementedError,
+                       match="Poseidon2 over Mersenne31"):
+        cli.main(["prove", "--field", "mersenne-31", "--fri", "testing",
+                  "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="M21"):
         cli.main(["pcs-comparison"])
 

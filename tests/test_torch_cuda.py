@@ -721,3 +721,54 @@ def test_batch_ref_proof_equals_cpu(cuda, is_local):
         batch_ref.verify_batch_ref(cfg, airs, proof, publics, common)
         proofs.append(proof)
     assert proofs[0] == proofs[1]
+
+
+@pytest.mark.parametrize("h,w", [(5, 1), (64, 2633), (300, 3520)])
+def test_sponge_on_m31_words_matches_plain(cuda, h, w):
+    """Canonical Mersenne-31 rows (one all P - 1, one all 0) through the
+    leaf sponge kernel and its plain version."""
+    from plonky3_tpu_torch.fields.mersenne31 import Mersenne31
+    from plonky3_tpu_torch.hashes import keccak_cuda as kc
+
+    flat = _words(np.random.default_rng(h), (h, w), Mersenne31.P, cuda)
+    flat[0] = Mersenne31.P - 1
+    flat[-1] = 0
+    got = kc.keccak_sponge_rows(flat)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kc.keccak_sponge_rows_plain(flat))
+
+
+@pytest.mark.parametrize("name", ["fibonacci", "monolith"])
+def test_circle_proof_equals_cpu(cuda, name):
+    """circle_stark_config (FRI by 2, 10 queries): FibonacciAir at 64
+    rows and MonolithAir at 8, the CUDA proof equal to the CPU's and
+    accepted by the port's verifier."""
+    from plonky3_tpu_torch.fields.mersenne31 import Mersenne31 as M31
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.models.fibonacci import (
+        FibonacciAir, generate_fibonacci_trace)
+    from plonky3_tpu_torch.models.monolith_air import (
+        MonolithAir, generate_monolith_trace)
+    from plonky3_tpu_torch.stark.config import circle_stark_config
+    from plonky3_tpu_torch.stark.prover import prove
+    from plonky3_tpu_torch.stark.verifier import verify
+
+    params = FriParameters(log_blowup=1, log_final_poly_len=0,
+                           max_log_arity=1, num_queries=10,
+                           commit_proof_of_work_bits=0,
+                           query_proof_of_work_bits=8)
+    inputs = np.random.default_rng(3).integers(
+        0, M31.P, size=(8, 16), dtype=np.uint64).astype(np.uint32)
+    proofs = []
+    for dev in (cuda, torch.device("cpu")):
+        if name == "fibonacci":
+            air = FibonacciAir(M31)
+            trace, publics = generate_fibonacci_trace(M31, 6, device=dev)
+        else:
+            air, publics = MonolithAir(M31), []
+            trace = generate_monolith_trace(M31, inputs, device=dev)
+        config = circle_stark_config(params, device=dev)
+        proof = prove(config, air, trace, publics)
+        verify(config, air, proof, publics)
+        proofs.append(proof)
+    assert proofs[0] == proofs[1]

@@ -210,7 +210,18 @@ def test_circle_spec_equals_reference():
 
 
 def test_circle_configs_wait_for_m19():
-    for make in (fixture_configs.circle_fixture_config,
-                 fixture_configs.batch_circle_fixture_config):
-        with pytest.raises(NotImplementedError, match="M19"):
-            make()
+    """M19 brought the circle fixture configs: each has the reference's
+    FRI parameters, Merkle cap, challenge field and byte-digest
+    transcript."""
+    for make, j_make in (
+            (fixture_configs.circle_fixture_config,
+             j_fixture.circle_fixture_config),
+            (fixture_configs.batch_circle_fixture_config,
+             j_fixture.batch_circle_fixture_config)):
+        cfg, ref = make(device="cpu"), j_make()
+        assert dataclasses.asdict(cfg.pcs.fri) == dataclasses.asdict(
+            ref.pcs.fri)
+        assert cfg.pcs.mmcs.cap_height == ref.pcs.mmcs.cap_height
+        assert (cfg.E.D, cfg.E.W) == (ref.pcs.ext.D, ref.pcs.ext.W)
+        assert cfg.initialise_challenger().digest_bytes
+        assert ref.initialise_challenger().digest_bytes
