@@ -172,9 +172,9 @@ Phases, each printed as one JSON line:
            under zk_stark_config, BLOWUP4_PARAMS (the main path's FRI
            with a blowup of 4: the ZK quotient's domain), prove(): a
            cold prove with spans (the host's random draw of 345 M words
-           among them) and peak memory, two warm proves, all three equal;
-           launches (K1, K2 at 2^20 x 2,634, the duplex grind, no keccak
-           kernel); verified, and a changed opened trace value, random
+           among them) and peak memory, a warm prove with per-launch
+           events, both equal; its launches (K1, K2 at 2^20 x 2,634, the
+           duplex grind, no keccak kernel); verified, and a changed opened trace value, random
            opening and salt word rejected; per-proof bounds. The kernels
            phase holds K1 and K2 at 2^18 and 2^20 x 2,634 (the `*_zk_air`
            keys);
@@ -235,6 +235,29 @@ Phases, each printed as one JSON line:
            benchmark` in its own process: exit code 0, the objective line,
            the stated prover (prove()), the circle_keccak_air phase's
            proof size, the soundness line.
+  gl_small  the Goldilocks STARK (goldilocks_stark_config, 10 queries,
+           8-bit query PoW): FibonacciAir at 256 rows and
+           MonolithGoldilocksAir at 16 rows (3,536 columns), prove_gl on
+           the card equal to prove_gl on the CPU (plain versions), the
+           card's proofs verified, a changed opened value rejected;
+  gl_fibonacci  FibonacciAir over Goldilocks at 2^20 rows under
+           new_benchmark(): one prove with spans, the Poseidon2-GL
+           kernels' launches and no other kernel, peak memory, verified,
+           a changed trace root rejected, per-proof bounds;
+  gl_monolith_air  MonolithGoldilocksAir at full width (3,536 columns),
+           2^16 rows (a cut of depth), the trace generated on the card,
+           under new_benchmark(): cold and warm proves, equal, spans,
+           launches, peak memory, verified, two probes rejected,
+           per-proof bounds, a profile (device busy share).
+The kernels phase also holds the Poseidon2-GL kernels (csrc/goldilocks.cu)
+against their plain versions: the leaf sponge at 2^17 x 3,536 (the plain
+version over 4 sampled rows), the compression on a 2^16-node level, the
+permutation on a 2^18-state grind batch.
+The CPU halves of the CUDA == CPU checks (the plain versions on the
+host's CPU, `side_*` functions, CPU_JOBS) run in worker processes that
+see no GPU, started after the card phase, beside the card's phases; the
+port's verifier (host work) runs there once a proof, on the CPU's
+proofs, which the card's must equal ("verified" counts them).
 Every profile checks that it recorded each of the port's kernels as many
 times as the prove launched it, and profiles again where it did not.
 Before the last line: one JSON object listing every kernel. The last line
@@ -320,6 +343,23 @@ def _profile(torch, fn):
     return prof
 
 
+def device_records(prof):
+    """[(device µs, kernel name, count)] of the CUDA records (kernels,
+    copies, fills) of a finished profile, by name, the busiest first:
+    summed from the profiler's raw records (key_averages builds a Python
+    event tree first, tens of seconds for a prove's launches)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    us, count = collections.Counter(), collections.Counter()
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            us[ev.name()] += (ev.end_ns() - ev.start_ns()) / 1e3
+            count[ev.name()] += 1
+    return sorted(((t, torch._C._demangle(k), count[k])
+                   for k, t in us.items()), reverse=True)
+
+
 def profiled_ms(torch, fn, reps: int, tag: str = ""):
     """(ms, source): device milliseconds of fn() per run, the summed time
     of the CUDA kernels whose name holds `tag` (every kernel for ""),
@@ -339,8 +379,6 @@ def profiled_ms(torch, fn, reps: int, tag: str = ""):
     launches a run: a device time, but from fewer launches) or "events"
     (no profile agreed: `events_ms`, the launches' gaps included). Every
     profile refused is listed in PROFILE_SHORT."""
-    from torch.autograd import DeviceType
-
     from plonky3_tpu_torch import kernels
 
     ev_ms = events_ms(torch, fn, reps)
@@ -355,10 +393,9 @@ def profiled_ms(torch, fn, reps: int, tag: str = ""):
         before = sum(kernels.LAUNCHES.values())
         prof = _profile(torch, runs)
         launched = sum(kernels.LAUNCHES.values()) - before
-        evs = [ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA and tag in ev.key]
-        us = sum(ev.self_device_time_total for ev in evs)
-        recorded = sum(ev.count for ev in evs)
+        evs = [(t, c) for t, k, c in device_records(prof) if tag in k]
+        us = sum(t for t, _ in evs)
+        recorded = sum(c for _, c in evs)
         if not tag:
             return us / 1e3 / reps, "profiler"
         ms = us / recorded * launched / 1e3 / reps if recorded else 0.0
@@ -465,6 +502,43 @@ def sponge_bound(card, h, w):
 def compress_bound(card, h):
     """One level of h nodes: 16 words in and 8 out per node."""
     return bound_ms(card, 4 * h * 24, h * KECCAK_F_ALU)
+
+
+# The Goldilocks kernels (csrc/goldilocks.cu): a Poseidon2-GL
+# permutation is 722 field adds and 520 field products in the reference's
+# schedule (the external layer 34 adds, 4 full rounds a side of 8
+# constant adds, 8 x^7 of 4 products and the layer, 22 partial rounds of
+# a constant add, one x^7, a sum of 7 adds and 8 products and adds). At
+# the least, a 64-bit add mod P is 6 ALU instructions (the add and its
+# carry in two halves, the carry's 2^32 - 1, the compare with P and its
+# subtraction, two of them folded), a product 4 wide multiplies (the
+# four 32 x 32 partial products) and 12 ALU (their sum into 128 bits and
+# the reduction lo + w2·(2^32 - 1) - w3 with its carry, borrow and
+# compare).
+GL_PERM_ADDS, GL_PERM_MULS = 722, 520
+GL_ADD_ALU, GL_MUL_ALU, GL_MUL_MUL = 6, 12, 4
+
+
+def gl_perm_ops(perms):
+    """(ALU, multiply) instructions of `perms` permutations."""
+    return (perms * (GL_PERM_ADDS * GL_ADD_ALU + GL_PERM_MULS * GL_MUL_ALU),
+            perms * GL_PERM_MULS * GL_MUL_MUL)
+
+
+def gl_sponge_bound(card, h, w):
+    """Leaf sponge over (h, w) elements: ceil(w / 4) permutations a row;
+    8 bytes an element, 4 out a row."""
+    return bound_ms(card, 8 * h * (w + 4), *gl_perm_ops(h * -(-w // 4)))
+
+
+def gl_compress_bound(card, n):
+    """One level of n nodes: 8 elements in, 4 out a node."""
+    return bound_ms(card, 8 * n * 12, *gl_perm_ops(n))
+
+
+def gl_permute_bound(card, n):
+    """n states of 8 elements, read and written."""
+    return bound_ms(card, 8 * n * 16, *gl_perm_ops(n))
 
 
 def ladder_bound(card, m, nodes):
@@ -711,6 +785,12 @@ def launch_bounds(card, calls, witnesses=()):
             key = (a[9], a[8])
             name = fn + P2_SUFFIX[key]
             b = p2_chain_bound(card, a[2], key)
+        elif fn == "gl_sponge_rows":
+            name, b = "gl_sponge", gl_sponge_bound(card, a[1], a[2])
+        elif fn == "gl_compress":
+            name, b = "gl_compress", gl_compress_bound(card, a[4])
+        elif fn == "gl_permute":
+            name, b = "gl_permute", gl_permute_bound(card, a[1])
         elif fn == "poseidon2_grind":  # a[7:9]: rounds, degree
             key = (a[8], a[7])
             name = fn + P2_SUFFIX[key]
@@ -856,9 +936,20 @@ def phase_card(torch, kernels):
     return Card(peak, lat / (clock_mhz * 1e6))
 
 
+# a draw of more words than this is made on the card: numpy took seconds
+# and gigabytes of host memory for each of the 10^8-10^9 words of the
+# kernel checks at the AIRs' widths
+HOST_DRAW_WORDS = 1 << 22
+
+
 def _rand_words(torch, rng, shape, P):
+    """Words below P on the card, drawn by `rng`, or, above
+    HOST_DRAW_WORDS words, on the card from a seed that `rng` draws."""
     import numpy as np
 
+    if np.prod(shape) > HOST_DRAW_WORDS and P < 1 << 31:
+        return _rand_words_device(torch, int(rng.integers(1 << 62)), shape,
+                                  P)
     x = rng.integers(0, P, size=shape, dtype=np.uint64).astype(np.int64)
     return torch.from_numpy(x).to(torch.int32).cuda()
 
@@ -1309,6 +1400,7 @@ def phase_kernels(torch, np, card):
     emit({"phase": "kernels", "kernel": "keccak_grind", "m": GRIND_WORDS,
           "pow_bits": SWEEP_BITS, **sweep})
     phase_kernels_poseidon2(torch, np, card, rng, records)
+    phase_kernels_goldilocks(torch, np, card, records)
     return records
 
 
@@ -1426,6 +1518,220 @@ def phase_kernels_poseidon2(torch, np, card, rng, records):
               "pow_bits": SWEEP_BITS, **sweep})
 
 
+# the Goldilocks STARK's shapes: MonolithGoldilocksAir's width, its LDE
+# (2^GL_MONOLITH_LOG_N rows, blowup 2), a tree level of its trace, and a
+# grind batch (gl/stark.py GRIND_BATCH_CUDA)
+GL_MONOLITH_WIDTH = 3536
+GL_MONOLITH_LOG_N = 16  # a cut of depth from the CLI objectives' 2^17
+GL_FIB_LOG_N = 20
+GL_SRC = "plonky3_tpu_torch/csrc/goldilocks.cu"
+# rows of the LDE-shaped leaf check that the plain version hashes
+GL_PLAIN_SPONGE_ROWS = 4
+
+
+def _gl_words_device(torch, seed, shape):
+    """Canonical Goldilocks elements drawn on the card (int64, the u64
+    bits): a high half below 2^32 - 1 and any low half."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    hi = torch.randint(0, 0xFFFFFFFF, shape, generator=g, device="cuda",
+                       dtype=torch.int64)
+    lo = torch.randint(0, 1 << 32, shape, generator=g, device="cuda",
+                       dtype=torch.int64)
+    return (hi << 32) | lo
+
+
+def _gl_record(name, replaces, err, ms, ms_src, wall, plain, b, sh, shape,
+               **extra):
+    return dict(name=name, route="cuda", source=GL_SRC, replaces=replaces,
+                max_abs_err=err, ms=ms, ms_source=ms_src, wall_ms=wall,
+                plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                library_ms=None, share=sh, shape=shape, **extra)
+
+
+def _gl_sponge_sample(np):
+    """The LDE-shaped leaf check's sampled rows: their indices, and their
+    elements from np.random.default_rng(45), the first all P - 1, the
+    second all 0."""
+    from plonky3_tpu_torch.fields.goldilocks import Goldilocks
+
+    h = 1 << (GL_MONOLITH_LOG_N + 1)
+    rng = np.random.default_rng(45)
+    idx = np.concatenate([[0, 1], rng.choice(np.arange(2, h),
+                                             GL_PLAIN_SPONGE_ROWS - 2,
+                                             replace=False)])
+    rows = rng.integers(0, Goldilocks.P, (GL_PLAIN_SPONGE_ROWS,
+                                          GL_MONOLITH_WIDTH), dtype=np.uint64)
+    rows[0], rows[1] = Goldilocks.P - 1, 0
+    return idx, rows
+
+
+def side_gl_sponge(np, torch, dev):
+    """The plain leaf sponge over `_gl_sponge_sample`'s rows on `dev`:
+    some 7 million tensor ops whatever the rows (64 s on the card as
+    launches), so it runs in a CPU worker (`cpu_side`)."""
+    from plonky3_tpu_torch.fields import goldilocks_device as gd
+    from plonky3_tpu_torch.gl.field import to_numpy, to_tensor
+
+    _, rows = _gl_sponge_sample(np)
+    return {"plain": to_numpy(gd.gl_sponge_rows_plain(
+        to_tensor(rows, dev))).tolist()}
+
+
+# The CPU halves of the CUDA == CPU checks (the plain versions) run in
+# worker processes that see no GPU, beside the card's phases: each is a
+# `side_*` function called with the device "cpu" (`cpu_side`). The host
+# has 8 cores; the workers take CPU_WORKERS x CPU_WORKER_THREADS of them.
+CPU_WORKERS = 3
+CPU_WORKER_THREADS = 2
+_CPU = {}
+# VERIFY_ONCE: a side function verifies its proofs on the CPU only: the
+# card's proofs must equal them (as_plain), and the port's verifier is
+# host work that reads a proof's values alone, so it runs once a proof.
+
+
+def _cpu_worker_init():
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+def _cpu_job(fn, args):
+    """globals()[fn](np, torch, "cpu", *args) in a worker: its `plain`
+    result, its `secs` and the job's seconds."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    out = globals()[fn](np, torch, "cpu", *args)
+    return out["plain"], out.get("secs", {}), time.perf_counter() - t0
+
+
+def start_cpu_jobs():
+    """Submit every job of CPU_JOBS, in the order the phases read them, to
+    a pool of CPU_WORKERS spawned processes (once). A script that imports
+    this module and runs phases guards its own body with
+    `if __name__ == "__main__"`: a spawned worker imports the main
+    module."""
+    if _CPU:
+        return
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(CPU_WORKERS,
+                                                     _cpu_worker_init)
+    _CPU["pool"] = pool
+    _CPU["jobs"] = {job: pool.apply_async(_cpu_job, job) for job in CPU_JOBS}
+
+
+def cpu_side(fn, *args):
+    """(plain result, secs, job seconds) of `fn(np, torch, "cpu", *args)`,
+    one of CPU_JOBS, from the worker pool; raises what the job raised."""
+    start_cpu_jobs()
+    return _CPU["jobs"][fn, args].get(timeout=1200)
+
+
+def stop_cpu_jobs():
+    if _CPU:
+        _CPU["pool"].terminate()
+        _CPU["pool"].join()
+        _CPU.clear()
+
+
+def sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_kernels_goldilocks(torch, np, card, records):
+    """The Poseidon2-GL kernels against their plain versions, bit for bit:
+    the leaf sponge at MonolithGoldilocksAir's LDE shape (2^17 x 3,536;
+    the plain version over GL_PLAIN_SPONGE_ROWS sampled rows in a CPU
+    worker, `side_gl_sponge`) and at narrow widths over every row (the
+    tails of 1 to 3 elements), the compression on a whole 2^16-node level
+    (the children of a reshaped level, as the trees pass them), the
+    permutation on a grind batch. Each with its time, bound and share;
+    plain_ms is the plain version's time on the card, and for the sponge
+    the worker's on the CPU (`plain_device`)."""
+    from plonky3_tpu_torch.fields import goldilocks_device as gd
+    from plonky3_tpu_torch.gl.field import to_tensor
+    from plonky3_tpu_torch.gl.stark import GRIND_BATCH_CUDA
+    from plonky3_tpu_torch.hashes import poseidon2_goldilocks_cuda as pgc
+
+    P = gd.P
+    h, w = 1 << (GL_MONOLITH_LOG_N + 1), GL_MONOLITH_WIDTH
+    mat = _gl_words_device(torch, 41, (h, w))
+    idx, rows = _gl_sponge_sample(np)
+    idx = torch.from_numpy(idx).cuda()
+    mat[idx] = to_tensor(rows, "cuda")
+    got = pgc.gl_sponge_rows(mat).index_select(0, idx)
+    run = lambda: pgc.gl_sponge_rows(mat)  # noqa: E731
+    ms, ms_src = profiled_ms(torch, run, 3, "gl_sponge_rows_kernel")
+    wall = cuda_ms(torch, run, 3)
+    b = gl_sponge_bound(card, h, w)
+    sh = share(f"gl sponge {w}", b[0], ms)
+    digests, _, plain_s = cpu_side("side_gl_sponge")
+    want = to_tensor(np.array(digests, dtype=np.uint64), "cuda")
+    err = compare(f"gl sponge {h} {w}", got, want)
+    records["gl_sponge"] = _gl_record(
+        "gl_sponge", "plonky3_tpu/gl/merkle.py:55", err, ms, ms_src, wall,
+        plain_s * 1e3, b, sh, [h, w],
+        plain_rows=GL_PLAIN_SPONGE_ROWS, plain_device="cpu")
+    emit({"phase": "kernels", "kernel": "gl_sponge", "h": h, "w": w,
+          "max_abs_err": err, "plain_rows": GL_PLAIN_SPONGE_ROWS, "ms": ms,
+          "ms_source": ms_src, "wall_ms": wall,
+          "plain_cpu_ms": plain_s * 1e3, "bound_ms": b[0],
+          "bound_by": b[1], "share": sh})
+    del mat
+    for hw in ((1, 1), (5, 2), (33, 3), (130, 4), (257, 9), (64, 2)):
+        m = _gl_words_device(torch, hw[1], hw)
+        e = compare(f"gl sponge {hw}", pgc.gl_sponge_rows(m),
+                    gd.gl_sponge_rows_plain(m))
+        emit({"phase": "kernels", "kernel": "gl_sponge", "h": hw[0],
+              "w": hw[1], "max_abs_err": e})
+
+    n = 1 << GL_MONOLITH_LOG_N
+    level = _gl_words_device(torch, 43, (2 * n, 4))
+    level[0] = gd.to_i64(P - 1)
+    pairs = level.reshape(n, 2, 4)
+    got = pgc.gl_compress(pairs[:, 0], pairs[:, 1])
+    want, plain = once_ms(torch, lambda: gd.gl_compress_plain(
+        pairs[:, 0], pairs[:, 1]))
+    err = compare(f"gl compress {n}", got, want)
+    run = lambda: pgc.gl_compress(pairs[:, 0], pairs[:, 1])  # noqa: E731
+    ms, ms_src = profiled_ms(torch, run, 20, "gl_compress_kernel")
+    wall = cuda_ms(torch, run, 20)
+    b = gl_compress_bound(card, n)
+    sh = share("gl compress", b[0], ms)
+    records["gl_compress"] = _gl_record(
+        "gl_compress", "plonky3_tpu/gl/merkle.py:125", err, ms, ms_src,
+        wall, plain, b, sh, [n, 4])
+    emit({"phase": "kernels", "kernel": "gl_compress", "n": n,
+          "max_abs_err": err, "ms": ms, "ms_source": ms_src,
+          "wall_ms": wall, "plain_ms": plain, "bound_ms": b[0],
+          "bound_by": b[1], "share": sh})
+
+    n = GRIND_BATCH_CUDA
+    states = _gl_words_device(torch, 44, (n, 8))
+    states[0] = gd.to_i64(P - 1)
+    states[1] = 0
+    got = pgc.gl_permute(states)
+    want, plain = once_ms(torch,
+                          lambda: gd.poseidon2_goldilocks_plain(states))
+    err = compare(f"gl permute {n}", got, want)
+    run = lambda: pgc.gl_permute(states)  # noqa: E731
+    ms, ms_src = profiled_ms(torch, run, 20, "gl_permute_kernel")
+    wall = cuda_ms(torch, run, 20)
+    b = gl_permute_bound(card, n)
+    sh = share("gl permute", b[0], ms)
+    records["gl_permute"] = _gl_record(
+        "gl_permute", "plonky3_tpu/gl/stark.py:62", err, ms, ms_src, wall,
+        plain, b, sh, [n, 8])
+    emit({"phase": "kernels", "kernel": "gl_permute", "n": n,
+          "max_abs_err": err, "ms": ms, "ms_source": ms_src,
+          "wall_ms": wall, "plain_ms": plain, "bound_ms": b[0],
+          "bound_by": b[1], "share": sh})
+
+
 def phase_mixed(torch, np, kernels):
     """A commit of mixed-height matrices on CUDA equals the CPU's: the
     injection levels run keccak_compress, the levels between them the
@@ -1463,6 +1769,8 @@ def as_plain(x):
     if hasattr(x, "__dict__"):
         return tuple((k, as_plain(v)) for k, v in vars(x).items())
     if isinstance(x, (list, tuple)):
+        if all(type(v) is int for v in x):  # the common leaf, at C speed
+            return tuple(x)
         return tuple(as_plain(v) for v in x)
     return x
 
@@ -1484,11 +1792,10 @@ def _workload(np, log_n, params, device, merkle="keccak"):
     return make(F, E, params, device=device), air, trace
 
 
-def phase_small(torch, np):
-    """prove() and the device-transcript prover on the card equal both on
-    the CPU at full width; so does prove_fast without a query proof of
-    work (grind(0) on the device path: on the card prove_fast raises
-    rather than fall back to prove())."""
+def side_small(np, torch, dev, case):
+    """phase_small's proofs on `dev`: "pow8", prove() and the device-
+    transcript prover; "pow0", prove() and prove_fast without a query
+    proof of work. On the CPU each verified (VERIFY_ONCE)."""
     import dataclasses
 
     from plonky3_tpu_torch.fri.config import FriParameters
@@ -1497,37 +1804,43 @@ def phase_small(torch, np):
     from plonky3_tpu_torch.stark.prover import prove
     from plonky3_tpu_torch.stark.verifier import verify
 
-    params = FriParameters(log_blowup=1, log_final_poly_len=0,
-                           max_log_arity=3, num_queries=10,
-                           commit_proof_of_work_bits=0,
-                           query_proof_of_work_bits=8)
-    no_pow = dataclasses.replace(params, query_proof_of_work_bits=0)
-    proofs, secs = collections.defaultdict(dict), {}
-    for dev in ("cuda", "cpu"):
-        for case, p, fns in (
-                ("pow8", params, (("prove", prove),
-                                  ("fast", _prove_device_fs))),
-                ("pow0", no_pow, (("prove", prove),
-                                  ("prove_fast", prove_fast)))):
-            config, air, trace = _workload(np, 8, p, dev)
-            for name, fn in fns:
-                t0 = time.perf_counter()
-                proof = fn(config, air, trace, [])
-                torch.cuda.synchronize()
-                secs[f"{case}_{name}_{dev}_s"] = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                verify(config, air, proof, [])  # raises on a rejection
-                secs[f"{case}_{name}_{dev}_verify_s"] = (
-                    time.perf_counter() - t0)
-                proofs[case][name, dev] = as_plain(proof)
-    for case, got in proofs.items():
-        if len(set(got.values())) != 1:
-            raise AssertionError(f"the small {case} proofs differ: "
-                                 f"{sorted(got, key=got.get)}")
-    emit({"phase": "small", "log_n": 8, "width": air.width,
+    params = FriParameters(**SMALL_PARAMS)
+    fns = (("prove", prove), ("fast", _prove_device_fs))
+    if case == "pow0":
+        params = dataclasses.replace(params, query_proof_of_work_bits=0)
+        fns = (("prove", prove), ("prove_fast", prove_fast))
+    config, air, trace = _workload(np, 8, params, dev)
+    plain, secs = {}, {}
+    for name, fn in fns:
+        t0 = time.perf_counter()
+        proof = fn(config, air, trace, [])
+        sync(torch, dev)
+        secs[f"{case}_{name}_{dev}_s"] = time.perf_counter() - t0
+        if dev == "cpu":  # see VERIFY_ONCE
+            t0 = time.perf_counter()
+            verify(config, air, proof, [])  # raises on a rejection
+            secs[f"{case}_{name}_{dev}_verify_s"] = time.perf_counter() - t0
+        plain[name] = as_plain(proof)
+    return {"plain": plain, "secs": secs, "width": air.width}
+
+
+def phase_small(torch, np):
+    """prove() and the device-transcript prover on the card equal both on
+    the CPU at full width; so does prove_fast without a query proof of
+    work (grind(0) on the device path: on the card prove_fast raises
+    rather than fall back to prove())."""
+    secs, verified = {}, 0
+    for case in ("pow8", "pow0"):
+        cuda = side_small(np, torch, "cuda", case)
+        cpu, cpu_secs, _ = cpu_side("side_small", case)
+        secs.update(cuda["secs"], **cpu_secs)
+        got = list(cuda["plain"].values()) + list(cpu.values())
+        if len(set(got)) != 1:
+            raise AssertionError(f"the small {case} proofs differ")
+        verified += len(cpu)
+    emit({"phase": "small", "log_n": 8, "width": cuda["width"],
           "cuda_equals_cpu": True, "fast_equals_prove": True,
-          "no_query_pow_equals_prove": True,
-          "verified": sum(len(got) for got in proofs.values()), **secs})
+          "no_query_pow_equals_prove": True, "verified": verified, **secs})
 
 
 def _air_workload(np, name, device, log_n=None, perms=None, F=None):
@@ -1566,6 +1879,34 @@ def _air_workload(np, name, device, log_n=None, perms=None, F=None):
             keccak_air.generate_keccak_trace(F, inputs, device=device), [])
 
 
+def side_keccak_air_small(np, torch, dev, name):
+    """phase_keccak_air_small's proofs of `name` on `dev`; on the CPU each
+    verified (VERIFY_ONCE)."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+    from plonky3_tpu_torch.stark.fast_prover import _prove_device_fs
+    from plonky3_tpu_torch.stark.prover import prove
+    from plonky3_tpu_torch.stark.verifier import verify
+
+    kw = {"fibonacci": {"log_n": 8}, "keccak": {"perms": 10}}[name]
+    air, trace, publics = _air_workload(np, name, dev, **kw)
+    config = keccak_stark_config(F, E, FriParameters(**SMALL_PARAMS),
+                                 device=dev)
+    plain, secs = {}, {}
+    for fn_name, fn in (("prove", prove), ("fast", _prove_device_fs)):
+        t0 = time.perf_counter()
+        proof = fn(config, air, trace, publics)
+        sync(torch, dev)
+        secs[f"{name}_{fn_name}_{dev}_s"] = time.perf_counter() - t0
+        if dev == "cpu":  # see VERIFY_ONCE
+            verify(config, air, proof, publics)  # raises on a rejection
+        plain[fn_name] = as_plain(proof)
+    return {"plain": plain, "secs": secs, "config": config, "air": air,
+            "rows": trace.shape[0], "publics": publics, "proof": proof}
+
+
 def phase_keccak_air_small(torch, np):
     """The generic AIR path at small sizes: FibonacciAir (public values,
     every filter) at 2^8 rows and KeccakAir with 10 permutations (256
@@ -1575,35 +1916,19 @@ def phase_keccak_air_small(torch, np):
     trace_next[0] (KeccakAir) with the class the tests pin."""
     from plonky3_tpu_torch.fields import KoalaBear as F
     from plonky3_tpu_torch.fields import KoalaBearExt4 as E
-    from plonky3_tpu_torch.fri.config import FriParameters
-    from plonky3_tpu_torch.stark.config import keccak_stark_config
-    from plonky3_tpu_torch.stark.fast_prover import _prove_device_fs
-    from plonky3_tpu_torch.stark.prover import prove
     from plonky3_tpu_torch.stark.verifier import (InvalidOpeningArgument,
                                                   verify)
 
-    params = FriParameters(log_blowup=1, log_final_poly_len=0,
-                           max_log_arity=3, num_queries=10,
-                           commit_proof_of_work_bits=0,
-                           query_proof_of_work_bits=8)
     secs, out = {}, {}
-    for name, kw in (("fibonacci", {"log_n": 8}), ("keccak", {"perms": 10})):
-        proofs = {}
-        for dev in ("cuda", "cpu"):
-            air, trace, publics = _air_workload(np, name, dev, **kw)
-            config = keccak_stark_config(F, E, params, device=dev)
-            for fn_name, fn in (("prove", prove), ("fast", _prove_device_fs)):
-                t0 = time.perf_counter()
-                proof = fn(config, air, trace, publics)
-                torch.cuda.synchronize()
-                secs[f"{name}_{fn_name}_{dev}_s"] = time.perf_counter() - t0
-                verify(config, air, proof, publics)  # raises on a rejection
-                proofs[fn_name, dev] = proof
-        got = {k: as_plain(p) for k, p in proofs.items()}
-        if len(set(got.values())) != 1:
-            raise AssertionError(f"the small {name} proofs differ: "
-                                 f"{sorted(got, key=got.get)}")
-        proof = proofs["fast", "cuda"]
+    for name in ("fibonacci", "keccak"):
+        cuda = side_keccak_air_small(np, torch, "cuda", name)
+        cpu, cpu_secs, _ = cpu_side("side_keccak_air_small", name)
+        secs.update(cuda["secs"], **cpu_secs)
+        got = list(cuda["plain"].values()) + list(cpu.values())
+        if len(set(got)) != 1:
+            raise AssertionError(f"the small {name} proofs differ")
+        config, air, proof = cuda["config"], cuda["air"], cuda["proof"]
+        publics = cuda["publics"]
         if name == "fibonacci":
             probe = "public_value"
             bad_publics = publics[:-1] + [(publics[-1] + 1) % F.P]
@@ -1615,8 +1940,8 @@ def phase_keccak_air_small(torch, np):
         try:
             verify(config, air, bad, bad_publics)
         except InvalidOpeningArgument as e:
-            out[name] = {"rows": trace.shape[0], "width": air.width,
-                         "publics": len(publics), "verified": len(proofs),
+            out[name] = {"rows": cuda["rows"], "width": air.width,
+                         "publics": len(publics), "verified": len(cpu),
                          "probe": probe, "raised": type(e).__name__,
                          "message": str(e)}
         else:
@@ -1630,44 +1955,94 @@ SMALL_PARAMS = dict(log_blowup=1, log_final_poly_len=0, max_log_arity=3,
                     query_proof_of_work_bits=8)
 
 
-def _cuda_equals_cpu(torch, name, make, publics, params, secs,
-                     make_config=None):
-    """Both provers on CUDA and on the CPU (plain versions) under the
-    KoalaBear keccak config, or `make_config(params, device)`'s, each proof
-    verified; all four must be equal. make(dev) gives (air, trace).
-    Returns (air, config, the CUDA fast proof, the blocks the CUDA fast
-    prove's quotient folded)."""
-    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+def _pair_case(np, torch, case, dev):
+    """(air, trace, public values, config) of one CUDA == CPU case of the
+    small phases at 2^8 rows, SMALL_PARAMS, on `dev`: Blake3Air,
+    PeriodicAir and NoNextRowAir, the JoinedAir of two FibonacciAirs
+    (KoalaBear keccak config), the CLI's BabyBear Poseidon2VectorAir,
+    Sha256Air and Poseidon1VectorAir under the named config."""
+    from plonky3_tpu_torch import cli
+    from plonky3_tpu_torch.air.composition import JoinedAir, NamedAir
+    from plonky3_tpu_torch.fields import BabyBear, BabyBearExt4
     from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.models.fibonacci import (
+        FibonacciAir, generate_fibonacci_trace)
+    from plonky3_tpu_torch.stark import config as stark_config
+
+    log_n, params = 8, FriParameters(**SMALL_PARAMS)
+    kind, _, merkle = case.partition("_")
+    make = getattr(stark_config, f"{merkle or 'keccak'}_stark_config", None)
+    publics = []
+    if case == "blake3":
+        air, trace = _air_workload(np, "blake3", dev, log_n=log_n)[:2]
+    elif case in ("PeriodicAir", "NoNextRowAir"):
+        n = 1 << log_n
+        rows = np.array([[PATTERN[i % 4], PATTERN[i % 4] * MASK[i % 2]]
+                         for i in range(n)], dtype=np.uint32)
+        cls = {c.__name__: c for c in _periodic_airs()}[case]
+        air = cls(F)
+        trace = torch.from_numpy(F.to_monty_np(rows).astype(
+            np.int64)).to(dev)
+    elif case == "joined":
+        t1, publics_a = generate_fibonacci_trace(F, log_n, device=dev)
+        t2, publics_b = generate_fibonacci_trace(F, log_n, a=2, b=3,
+                                                 device=dev)
+        air = JoinedAir(NamedAir("fib_a", FibonacciAir(F)),
+                        NamedAir("fib_b", FibonacciAir(F)))
+        trace, publics = torch.cat([t1, t2], dim=1), publics_a + publics_b
+    elif kind == "babybear":
+        job = cli.build("baby-bear", "poseidon-2-permutations", log_n, 3,
+                        "testing", merkle, dev)
+        air, trace = job.air, job.trace
+        make = getattr(stark_config, {"keccak-f": "keccak"}.get(
+            merkle, merkle) + "_stark_config")
+        return air, trace, publics, make(BabyBear, BabyBearExt4, params,
+                                         device=dev)
+    elif kind == "sha256":
+        air, trace = _air_workload(np, "sha256", dev, log_n=log_n)[:2]
+    else:
+        air, trace = _poseidon1_workload(np, log_n, dev)
+    return air, trace, publics, make(F, E, params, device=dev)
+
+
+def side_pair(np, torch, dev, case):
+    """Both provers on `dev` for `_pair_case(case)`, on the CPU each proof
+    verified (VERIFY_ONCE): the proofs, seconds, and the fold blocks of
+    the fast prove."""
     from plonky3_tpu_torch.stark import prover as stark_prover
-    from plonky3_tpu_torch.stark.config import keccak_stark_config
     from plonky3_tpu_torch.stark.fast_prover import _prove_device_fs
     from plonky3_tpu_torch.stark.verifier import verify
 
-    if make_config is None:
-        def make_config(params, device):
-            return keccak_stark_config(F, E, params, device=device)
-
-    proofs, blocks = {}, None
-    for dev in ("cuda", "cpu"):
-        air, trace = make(dev)
-        config = make_config(params, dev)
-        for fn_name, fn in (("prove", stark_prover.prove),
-                            ("fast", _prove_device_fs)):
-            before = stark_prover.FOLD_BLOCKS["count"]
-            t0 = time.perf_counter()
-            proof = fn(config, air, trace, publics)
-            torch.cuda.synchronize()
-            secs[f"{name}_{fn_name}_{dev}_s"] = time.perf_counter() - t0
-            if (fn_name, dev) == ("fast", "cuda"):
-                blocks = stark_prover.FOLD_BLOCKS["count"] - before
-                cuda_proof, cuda_config, cuda_air = proof, config, air
+    air, trace, publics, config = _pair_case(np, torch, case, dev)
+    plain, secs = {}, {}
+    for fn_name, fn in (("prove", stark_prover.prove),
+                        ("fast", _prove_device_fs)):
+        before = stark_prover.FOLD_BLOCKS["count"]
+        t0 = time.perf_counter()
+        proof = fn(config, air, trace, publics)
+        sync(torch, dev)
+        secs[f"{case}_{fn_name}_{dev}_s"] = time.perf_counter() - t0
+        blocks = stark_prover.FOLD_BLOCKS["count"] - before
+        if dev == "cpu":  # see VERIFY_ONCE
             verify(config, air, proof, publics)  # raises on a rejection
-            proofs[fn_name, dev] = as_plain(proof)
-    if len(set(proofs.values())) != 1:
-        raise AssertionError(f"the small {name} proofs differ: "
-                             f"{sorted(proofs, key=proofs.get)}")
-    return cuda_air, cuda_config, cuda_proof, blocks
+        plain[fn_name] = as_plain(proof)
+    return {"plain": plain, "secs": secs, "air": air, "config": config,
+            "proof": proof, "blocks": blocks}
+
+
+def _cuda_equals_cpu(torch, np, case, secs):
+    """Both provers on CUDA (`side_pair`) and on the CPU (plain versions,
+    in a CPU worker, each proof verified); all four must be equal.
+    Returns (air, config, the CUDA fast proof, the blocks the CUDA fast
+    prove's quotient folded)."""
+    cuda = side_pair(np, torch, "cuda", case)
+    cpu, cpu_secs, _ = cpu_side("side_pair", case)
+    secs.update(cuda["secs"], **cpu_secs)
+    if len(set(cuda["plain"].values()) | set(cpu.values())) != 1:
+        raise AssertionError(f"the small {case} proofs differ")
+    return cuda["air"], cuda["config"], cuda["proof"], cuda["blocks"]
 
 
 def phase_blake3_air_small(torch, np):
@@ -1675,15 +2050,12 @@ def phase_blake3_air_small(torch, np):
     equal both on the CPU, every proof verified, and a changed
     trace_next[0] rejected with InvalidOpeningArgument."""
     from plonky3_tpu_torch.fields import KoalaBearExt4 as E
-    from plonky3_tpu_torch.fri.config import FriParameters
     from plonky3_tpu_torch.stark.verifier import (InvalidOpeningArgument,
                                                   verify)
 
     log_n, secs = 8, {}
-    air, config, proof, blocks = _cuda_equals_cpu(
-        torch, "blake3",
-        lambda dev: _air_workload(np, "blake3", dev, log_n=log_n)[:2], [],
-        FriParameters(**SMALL_PARAMS), secs)
+    air, config, proof, blocks = _cuda_equals_cpu(torch, np, "blake3",
+                                                  secs)
     bad = copy.deepcopy(proof)
     _bump_trace_next(bad, E)
     try:
@@ -1694,7 +2066,7 @@ def phase_blake3_air_small(torch, np):
         raise AssertionError("verify accepted the blake3 probe trace_next")
     emit({"phase": "blake3_air_small", "rows": 1 << log_n,
           "width": air.width, "cuda_equals_cpu": True,
-          "fast_equals_prove": True, "verified": 4, "fold_blocks": blocks,
+          "fast_equals_prove": True, "verified": 2, "fold_blocks": blocks,
           "probe": "trace_next", **raised, **secs})
 
 
@@ -1738,27 +2110,16 @@ def phase_periodic(torch, np):
     NoNextRowAir (the bit-reversed fold), both provers on CUDA equal to
     both on the CPU, every proof verified; the no-next-row proof opens
     no next row."""
-    from plonky3_tpu_torch.fields import KoalaBear as F
-    from plonky3_tpu_torch.fri.config import FriParameters
-
-    log_n, secs, out = 8, {}, {}
-    n = 1 << log_n
-    rows = np.array([[PATTERN[i % 4], PATTERN[i % 4] * MASK[i % 2]]
-                     for i in range(n)], dtype=np.uint32)
-    monty = F.to_monty_np(rows).astype(np.int64)
-    for cls in _periodic_airs():
-        _, _, proof, blocks = _cuda_equals_cpu(
-            torch, cls.__name__,
-            lambda dev: (cls(F), torch.from_numpy(monty).to(dev)), [],
-            FriParameters(**SMALL_PARAMS), secs)
+    secs, out = {}, {}
+    for name in ("PeriodicAir", "NoNextRowAir"):
+        _, _, proof, blocks = _cuda_equals_cpu(torch, np, name, secs)
         opens_next = proof.opened_values.trace_next is not None
-        if opens_next != (cls.__name__ == "PeriodicAir"):
-            raise AssertionError(f"{cls.__name__}: opens the next row "
+        if opens_next != (name == "PeriodicAir"):
+            raise AssertionError(f"{name}: opens the next row "
                                  f"{opens_next}")
-        out[cls.__name__] = {"opens_next_row": opens_next,
-                             "fold_blocks": blocks}
-    emit({"phase": "periodic", "rows": n, "cuda_equals_cpu": True,
-          "fast_equals_prove": True, "verified": 8, **out, **secs})
+        out[name] = {"opens_next_row": opens_next, "fold_blocks": blocks}
+    emit({"phase": "periodic", "rows": 256, "cuda_equals_cpu": True,
+          "fast_equals_prove": True, "verified": 4, **out, **secs})
 
 
 # the kernels the main path must launch
@@ -2179,28 +2540,14 @@ def phase_babybear_small(torch, np):
     registers) at 2^8 rows, built by the CLI's `build`, under both
     configs: both provers on the card equal both on the CPU, every proof
     verified."""
-    from plonky3_tpu_torch import cli
-    from plonky3_tpu_torch.fields import BabyBear as F
-    from plonky3_tpu_torch.fields import BabyBearExt4 as E
-    from plonky3_tpu_torch.fri.config import FriParameters
-    from plonky3_tpu_torch.stark import config as stark_config
-
     log_n, secs, out = 8, {}, {}
-    for merkle, make in (("keccak-f", stark_config.keccak_stark_config),
-                         ("poseidon2", stark_config.poseidon2_stark_config)):
-        def job(dev):
-            j = cli.build("baby-bear", "poseidon-2-permutations", log_n, 3,
-                          "testing", merkle, dev)
-            return j.air, j.trace
-
-        air, _, proof, _ = _cuda_equals_cpu(
-            torch, f"babybear_{merkle}", job, [],
-            FriParameters(**SMALL_PARAMS), secs,
-            lambda params, dev: make(F, E, params, device=dev))
+    for merkle in ("keccak-f", "poseidon2"):
+        air, _, proof, _ = _cuda_equals_cpu(torch, np, f"babybear_{merkle}",
+                                            secs)
         out[merkle] = {"width": air.width, "proof_bytes":
                        proof.size_in_bytes()}
     emit({"phase": "babybear_small", "rows": 1 << log_n,
-          "cuda_equals_cpu": True, "fast_equals_prove": True, "verified": 8,
+          "cuda_equals_cpu": True, "fast_equals_prove": True, "verified": 4,
           **out, **secs})
 
 
@@ -2302,22 +2649,15 @@ def phase_sha256_air_small(torch, np):
     """Sha256Air (7,728 columns) at 2^8 rows under the keccak and the
     Poseidon2 configs: both provers on the card equal both on the CPU,
     every proof verified, and a changed opened trace value rejected."""
-    from plonky3_tpu_torch.fields import KoalaBear as F
     from plonky3_tpu_torch.fields import KoalaBearExt4 as E
-    from plonky3_tpu_torch.fri.config import FriParameters
-    from plonky3_tpu_torch.stark import config as stark_config
     from plonky3_tpu_torch.stark.verifier import (InvalidOpeningArgument,
                                                   OodEvaluationMismatch,
                                                   verify)
 
     log_n, secs, out = 8, {}, {}
     for merkle in ("keccak", "poseidon2"):
-        make = getattr(stark_config, f"{merkle}_stark_config")
         air, config, proof, blocks = _cuda_equals_cpu(
-            torch, f"sha256_{merkle}",
-            lambda dev: _air_workload(np, "sha256", dev, log_n=log_n)[:2],
-            [], FriParameters(**SMALL_PARAMS), secs,
-            lambda params, dev, make=make: make(F, E, params, device=dev))
+            torch, np, f"sha256_{merkle}", secs)
         bad = copy.deepcopy(proof)
         _bump_trace_value(bad, E)
         try:
@@ -2332,7 +2672,7 @@ def phase_sha256_air_small(torch, np):
                                  f"probe trace_local")
     emit({"phase": "sha256_air_small", "rows": 1 << log_n,
           "width": air.width, "cuda_equals_cpu": True,
-          "fast_equals_prove": True, "verified": 8, **out, **secs})
+          "fast_equals_prove": True, "verified": 4, **out, **secs})
 
 
 def _poseidon1_workload(np, log_n, device):
@@ -2355,23 +2695,14 @@ def phase_poseidon1_small(torch, np):
     """Poseidon1VectorAir(KoalaBear, 16, 8) (1,312 columns, its own fold)
     at 2^8 rows under the keccak and the Poseidon2 configs: both provers
     on the card equal both on the CPU, every proof verified."""
-    from plonky3_tpu_torch.fields import KoalaBear as F
-    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
-    from plonky3_tpu_torch.fri.config import FriParameters
-    from plonky3_tpu_torch.stark import config as stark_config
-
     log_n, secs, out = 8, {}, {}
     for merkle in ("keccak", "poseidon2"):
-        make = getattr(stark_config, f"{merkle}_stark_config")
-        air, _, proof, _ = _cuda_equals_cpu(
-            torch, f"poseidon1_{merkle}",
-            lambda dev: _poseidon1_workload(np, log_n, dev), [],
-            FriParameters(**SMALL_PARAMS), secs,
-            lambda params, dev, make=make: make(F, E, params, device=dev))
+        air, _, proof, _ = _cuda_equals_cpu(torch, np, f"poseidon1_{merkle}",
+                                            secs)
         out[merkle] = {"width": air.width,
                        "proof_bytes": proof.size_in_bytes()}
     emit({"phase": "poseidon1_small", "rows": 1 << log_n,
-          "cuda_equals_cpu": True, "fast_equals_prove": True, "verified": 8,
+          "cuda_equals_cpu": True, "fast_equals_prove": True, "verified": 4,
           **out, **secs})
 
 
@@ -2381,28 +2712,12 @@ def phase_m15_small(torch, np):
     batch_inv on 2^20 KoalaBear and BabyBear words (zeros included) equal
     to the elementwise inverse on the card, both timed by CUDA events;
     the Ext8 fields' products and inverses on the card equal the CPU's."""
-    from plonky3_tpu_torch.air.composition import JoinedAir, NamedAir
     from plonky3_tpu_torch.fields import (BabyBear, BabyBearExt8, KoalaBear,
                                           KoalaBearExt8)
-    from plonky3_tpu_torch.fri.config import FriParameters
-    from plonky3_tpu_torch.models.fibonacci import (
-        FibonacciAir, generate_fibonacci_trace)
-
-    def joined(dev):
-        t1, _ = generate_fibonacci_trace(KoalaBear, 8, device=dev)
-        t2, _ = generate_fibonacci_trace(KoalaBear, 8, a=2, b=3, device=dev)
-        return (JoinedAir(NamedAir("fib_a", FibonacciAir(KoalaBear)),
-                          NamedAir("fib_b", FibonacciAir(KoalaBear))),
-                torch.cat([t1, t2], dim=1))
 
     secs, out = {}, {}
-    _, publics_a = generate_fibonacci_trace(KoalaBear, 8, device="cpu")
-    _, publics_b = generate_fibonacci_trace(KoalaBear, 8, a=2, b=3,
-                                            device="cpu")
-    air, _, proof, _ = _cuda_equals_cpu(
-        torch, "joined", joined, publics_a + publics_b,
-        FriParameters(**SMALL_PARAMS), secs)
-    out["joined"] = {"width": air.width, "publics": 6, "verified": 4,
+    air, _, proof, _ = _cuda_equals_cpu(torch, np, "joined", secs)
+    out["joined"] = {"width": air.width, "publics": 6, "verified": 2,
                      "proof_bytes": proof.size_in_bytes()}
     rng = np.random.default_rng(15)
     for Fb, E8 in ((KoalaBear, KoalaBearExt8), (BabyBear, BabyBearExt8)):
@@ -2581,6 +2896,25 @@ def rejected(what, fn, prefixes):
     raise AssertionError(f"verify accepted the probe {what}")
 
 
+def side_zk_small(np, torch, dev, name):
+    """phase_zk_small's seed-1 proof of `name` on `dev`, verified on the
+    CPU (VERIFY_ONCE)."""
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark.prover import prove
+    from plonky3_tpu_torch.stark.verifier import verify
+
+    params = FriParameters(**SMALL_BLOWUP4_PARAMS)
+    kw = {"fibonacci": {"log_n": 8}, "keccak": {"perms": 10}}[name]
+    air, trace, publics = _air_workload(np, name, dev, **kw)
+    t0 = time.perf_counter()
+    proof = prove(_zk_config(params, 1, dev), air, trace, publics)
+    sync(torch, dev)
+    secs = {f"{name}_{dev}_s": time.perf_counter() - t0}
+    if dev == "cpu":  # see VERIFY_ONCE
+        verify(_zk_config(params, 1, dev), air, proof, publics)
+    return {"plain": as_plain(proof), "secs": secs, "proof": proof}
+
+
 def phase_zk_small(torch, np):
     """zk_stark_config at 2^8 rows (SMALL_BLOWUP4_PARAMS): FibonacciAir
     and KeccakAir (10 permutations) proven on the card equal to the same
@@ -2596,18 +2930,12 @@ def phase_zk_small(torch, np):
     params = FriParameters(**SMALL_BLOWUP4_PARAMS)
     secs, out = {}, {}
     for name, kw in (("fibonacci", {"log_n": 8}), ("keccak", {"perms": 10})):
-        proofs = {}
-        for dev in ("cuda", "cpu"):
-            air, trace, publics = _air_workload(np, name, dev, **kw)
-            t0 = time.perf_counter()
-            proofs[dev] = prove(_zk_config(params, 1, dev), air, trace,
-                                publics)
-            torch.cuda.synchronize()
-            secs[f"{name}_{dev}_s"] = time.perf_counter() - t0
-            verify(_zk_config(params, 1, dev), air, proofs[dev], publics)
-        proof = proofs["cpu"]
-        if as_plain(proofs["cuda"]) != as_plain(proof):
+        cuda = side_zk_small(np, torch, "cuda", name)
+        cpu, cpu_secs, _ = cpu_side("side_zk_small", name)
+        secs.update(cuda["secs"], **cpu_secs)
+        if cuda["plain"] != cpu:
             raise AssertionError(f"the ZK {name} proofs differ")
+        proof = cuda["proof"]
         air, trace, publics = _air_workload(np, name, "cuda", **kw)
         other = prove(_zk_config(params, 2, "cuda"), air, trace, publics)
         for root in ("trace", "quotient_chunks", "random"):
@@ -2641,10 +2969,10 @@ def phase_zk_air(torch, np, kernels, card):
     2^18 x 2,634 and committed at 2^20 rows with salts (BLOWUP4_PARAMS:
     8 quotient chunks over 2^20 rows), prove() (the host transcript; the
     fast prover covers no ZK PCS). A cold prove with spans (the host's random
-    draw and its conversion on the card among them) and peak memory, two
-    warm proves (the second with per-launch events and spans); the three
-    proofs from seed 1 equal; launches of one warm prove (K1, K2, the
-    duplex grind, no keccak kernel); the port's verifier accepts the
+    draw and its conversion on the card among them) and peak memory, a
+    warm prove with per-launch events and spans; the two proofs from seed
+    1 equal; the warm prove's launches (K1, K2, the duplex grind, no
+    keccak kernel); the port's verifier accepts the
     proof and rejects a changed opened trace value, random opening and
     salt word. Returns launches and per-proof bounds."""
     from plonky3_tpu_torch.fields import KoalaBearExt4 as E
@@ -2673,7 +3001,9 @@ def phase_zk_air(torch, np, kernels, card):
     peak_mem = torch.cuda.max_memory_allocated()
     kernels.reset_launches()
     blocks = FOLD_BLOCKS["count"]
-    proof, warm_s = run()
+    warm_spans = {}
+    (proof, warm_s), calls = recorded(torch, kernels,
+                                      lambda: run(warm_spans))
     launches = dict(kernels.LAUNCHES)
     blocks = FOLD_BLOCKS["count"] - blocks
     missing = [k for k in ZK_PATH if launches[k] == 0]
@@ -2681,11 +3011,8 @@ def phase_zk_air(torch, np, kernels, card):
     if missing or launched:
         raise AssertionError(f"zk_air prove: not launched {missing}, "
                              f"launched {launched}")
-    warm_spans = {}
-    (traced, warm2_s), calls = recorded(torch, kernels,
-                                        lambda: run(warm_spans))
-    if not as_plain(first) == as_plain(proof) == as_plain(traced):
-        raise AssertionError("three ZK proves from one seed differ")
+    if as_plain(first) != as_plain(proof):
+        raise AssertionError("two ZK proves from one seed differ")
     ov = proof.opened_values
     if (proof.degree_bits != log_n + 1 or len(ov.trace_local) != air.width
             or len(ov.quotient_chunks) != 8 or len(ov.random) != E.D):
@@ -2705,10 +3032,10 @@ def phase_zk_air(torch, np, kernels, card):
                                  "OodEvaluationMismatch"))
     emit({"phase": "zk_air", "log_n": log_n, "rows": 1 << log_n,
           "width": air.width, "perms": perms, "trace_gen_s": gen_s,
-          "cold_prove_s": cold_s, "warm_prove_s": [warm_s, warm2_s],
+          "cold_prove_s": cold_s, "warm_events_prove_s": warm_s,
           "perms_per_s": perms / warm_s, "peak_mem_bytes": peak_mem,
           "fold_blocks": blocks, "fold_block_rows": FOLD_BLOCKS["rows"],
-          "launches": launches, "equal_proofs": 3,
+          "launches": launches, "equal_proofs": 2,
           "proof_bytes": proof.size_in_bytes(), "verify_s": verify_s,
           "tamper": tamper, "host_cpu": host_cpu()})
     emit({"phase": "zk_air_spans", "cold": cold_spans, "warm": warm_spans})
@@ -2753,6 +3080,26 @@ def _even_zero_trace(np, F, log_n, bad=False):
     return F.to_monty_np(t).astype(np.int64)
 
 
+def side_preprocessed_small(np, torch, dev):
+    """EvenZeroAir's setup root and proof at 2^8 rows on `dev`, verified
+    on the CPU (VERIFY_ONCE)."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark import preprocessed as pre
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+
+    air = _even_zero_air()(F)
+    cfg = keccak_stark_config(F, E, FriParameters(**SMALL_PARAMS),
+                              device=dev)
+    setup = pre.setup_preprocessed(cfg, air, 8)
+    proof = pre.prove_with_preprocessed(cfg, air, torch.from_numpy(
+        _even_zero_trace(np, F, 8)).to(dev), [], setup)
+    if dev == "cpu":  # see VERIFY_ONCE
+        pre.verify_with_preprocessed(cfg, air, proof, [], setup.root, 1)
+    return {"plain": (setup.root, as_plain(proof))}
+
+
 def phase_preprocessed(torch, np):
     """Preprocessed columns under the keccak config: EvenZeroAir's setup
     root and proof on the card equal the CPU's at 2^8 rows, verified;
@@ -2766,16 +3113,8 @@ def phase_preprocessed(torch, np):
     from plonky3_tpu_torch.stark.config import keccak_stark_config
 
     air = _even_zero_air()(F)
-    small = {}
-    for dev in ("cuda", "cpu"):
-        cfg = keccak_stark_config(F, E, FriParameters(**SMALL_PARAMS),
-                                  device=dev)
-        setup = pre.setup_preprocessed(cfg, air, 8)
-        proof = pre.prove_with_preprocessed(cfg, air, torch.from_numpy(
-            _even_zero_trace(np, F, 8)).to(dev), [], setup)
-        pre.verify_with_preprocessed(cfg, air, proof, [], setup.root, 1)
-        small[dev] = (setup.root, as_plain(proof))
-    if small["cuda"] != small["cpu"]:
+    if (side_preprocessed_small(np, torch, "cuda")["plain"]
+            != cpu_side("side_preprocessed_small")[0]):
         raise AssertionError("the preprocessed proofs differ")
     log_n = 20
     cfg = keccak_stark_config(F, E, FriParameters.new_benchmark_high_arity(),
@@ -2839,6 +3178,28 @@ def _range_check_trace(np, F, log_n, unbalanced=False):
     return F.to_monty_np(t).astype(np.int64)
 
 
+def side_lookup_small(np, torch, dev):
+    """RangeCheckAir at 2^8 rows on `dev`: the permutation trace for one
+    beta (as lists of ints), the proof and its permutation root, verified
+    on the CPU (VERIFY_ONCE)."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark import lookup
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+
+    air = _range_check_air()(F)
+    cols = lookup.LookupColumns(a=0, m_a=1, b=2, m_b=3)
+    trace = torch.from_numpy(_range_check_trace(np, F, 8)).to(dev)
+    cfg = keccak_stark_config(F, E, FriParameters(**SMALL_BLOWUP4_PARAMS),
+                              device=dev)
+    perm = lookup.build_permutation_trace(E, trace, cols, (5, 6, 7, 8))
+    proof, root = lookup.prove_with_lookup(cfg, air, trace, [], cols)
+    if dev == "cpu":  # see VERIFY_ONCE
+        lookup.verify_with_lookup(cfg, air, proof, root, [], cols)
+    return {"plain": (perm.cpu().tolist(), root, as_plain(proof))}
+
+
 def phase_lookup(torch, np):
     """The LogUp lookup under the keccak config: RangeCheckAir at 2^8
     rows, the permutation trace (for one beta) and the proof and its
@@ -2856,17 +3217,8 @@ def phase_lookup(torch, np):
     air = _range_check_air()(F)
     cols = lookup.LookupColumns(a=0, m_a=1, b=2, m_b=3)
     beta = (5, 6, 7, 8)
-    small = {}
-    for dev in ("cuda", "cpu"):
-        trace = torch.from_numpy(_range_check_trace(np, F, 8)).to(dev)
-        cfg = keccak_stark_config(F, E, FriParameters(
-            **SMALL_BLOWUP4_PARAMS), device=dev)
-        perm = lookup.build_permutation_trace(E, trace, cols, beta)
-        proof, root = lookup.prove_with_lookup(cfg, air, trace, [], cols)
-        lookup.verify_with_lookup(cfg, air, proof, root, [], cols)
-        small[dev] = (perm.cpu(), root, as_plain(proof))
-    if not (torch.equal(small["cuda"][0], small["cpu"][0])
-            and small["cuda"][1:] == small["cpu"][1:]):
+    if (side_lookup_small(np, torch, "cuda")["plain"]
+            != cpu_side("side_lookup_small")[0]):
         raise AssertionError("the lookup proofs differ")
     log_n = 20
     cfg = keccak_stark_config(F, E, FriParameters(**BLOWUP4_PARAMS),
@@ -2920,6 +3272,27 @@ def _batch_instances(np, device, log_p2, keccak_perms, log_fib,
                                          log_n=log_fib))]
 
 
+def side_batch_small(np, torch, dev, kind):
+    """The batch proof at 2^8-scale heights under the `kind` config on
+    `dev`, verified on the CPU (VERIFY_ONCE)."""
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.stark import batch, config as stark_config
+
+    inst = _batch_instances(np, dev, 8, 5, 4)
+    cfg = getattr(stark_config, f"{kind}_stark_config")(
+        F, E, FriParameters(**SMALL_PARAMS), device=dev)
+    t0 = time.perf_counter()
+    proof = batch.prove_batch(cfg, inst)
+    sync(torch, dev)
+    secs = {f"small_{kind}_{dev}_s": time.perf_counter() - t0}
+    if dev == "cpu":  # see VERIFY_ONCE
+        batch.verify_batch(cfg, [i.air for i in inst], proof,
+                           [i.public_values for i in inst])
+    return {"plain": as_plain(proof), "secs": secs}
+
+
 def phase_batch(torch, np, kernels, card):
     """The lookup-free batch STARK: at 2^8-scale heights (2^8, 2^7 and
     2^4 rows) the batch proof on the card equals the CPU's under the
@@ -2937,19 +3310,10 @@ def phase_batch(torch, np, kernels, card):
 
     secs = {}
     for kind in ("keccak", "poseidon2"):
-        proofs = {}
-        for dev in ("cuda", "cpu"):
-            inst = _batch_instances(np, dev, 8, 5, 4)
-            cfg = getattr(stark_config, f"{kind}_stark_config")(
-                F, E, FriParameters(**SMALL_PARAMS), device=dev)
-            t0 = time.perf_counter()
-            proof = batch.prove_batch(cfg, inst)
-            torch.cuda.synchronize()
-            secs[f"small_{kind}_{dev}_s"] = time.perf_counter() - t0
-            batch.verify_batch(cfg, [i.air for i in inst], proof,
-                               [i.public_values for i in inst])
-            proofs[dev] = as_plain(proof)
-        if proofs["cuda"] != proofs["cpu"]:
+        cuda = side_batch_small(np, torch, "cuda", kind)
+        cpu, cpu_secs, _ = cpu_side("side_batch_small", kind)
+        secs.update(cuda["secs"], **cpu_secs)
+        if cuda["plain"] != cpu:
             raise AssertionError(f"the small {kind} batch proofs differ")
     params = FriParameters.new_benchmark_high_arity()
     inst = _batch_instances(np, "cuda", 17, (1 << 16) // 24, 10, params)
@@ -3295,18 +3659,10 @@ def phase_serde(torch, np, babybear_poseidon2):
     FibAirLookups at 2^8, SMALL_PARAMS) and the bus batch (2^8 queries
     into 2^6 table rows, 2^8 pairs) proven on the card equal to the CPU's,
     verified, and the batch proof through batch_wire and back."""
-    from plonky3_tpu_torch.compat.batch_wire import (
-        decode_to_batch_ref_proof, encode_batch_ref_proof)
     from plonky3_tpu_torch.compat.uni_stark_wire import (
         decode_to_our_proof, encode_our_proof)
     from plonky3_tpu_torch.fields import BabyBear as BF
-    from plonky3_tpu_torch.fields import KoalaBear as F
-    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
-    from plonky3_tpu_torch.fri.config import FriParameters
     from plonky3_tpu_torch.serde.proof_codec import TWO_ADIC_SPEC
-    from plonky3_tpu_torch.stark import batch_ref as br
-    from plonky3_tpu_torch.stark import interaction as it
-    from plonky3_tpu_torch.stark.config import keccak_stark_config
 
     out = {}
     proof = babybear_poseidon2["proof"]
@@ -3318,36 +3674,57 @@ def phase_serde(torch, np, babybear_poseidon2):
         raise AssertionError("the babybear_poseidon2 proof changed on the "
                              "wire")
     out["uni_stark_wire_bytes"] = len(wire)
-    params = FriParameters(**SMALL_PARAMS)
-    proofs = {}
-    for dev in ("cuda", "cpu"):
-        config, inst, publics = _batch_ref_case(torch, np, dev, 8, 8, params)
-        airs = [i.air for i in inst]
-        common = br.keygen(config, airs, [8, 8, 8])
-        t0 = time.perf_counter()
-        proof = br.prove_batch_ref(config, inst, common)
-        torch.cuda.synchronize()
-        out[f"batch_ref_{dev}_s"] = time.perf_counter() - t0
+    cuda = side_serde_small(np, torch, "cuda")
+    cpu, cpu_secs, _ = cpu_side("side_serde_small")
+    out.update(cuda["secs"], **cpu_secs)
+    if cuda["plain"] != cpu:
+        raise AssertionError("the small batch_ref or interaction proofs "
+                             "differ between CUDA and the CPU")
+    emit({"phase": "serde", "small_rows": 256, "cuda_equals_cpu": True,
+          "small_batch_ref_wire_bytes": len(cpu[1]), **out})
+
+
+def side_serde_small(np, torch, dev):
+    """phase_serde's canonical batch and bus batch at 256 rows on `dev`,
+    with the batch proof's wire bytes; on the CPU both verified and the
+    batch proof decoded back from the wire (VERIFY_ONCE)."""
+    from plonky3_tpu_torch.compat.batch_wire import (
+        decode_to_batch_ref_proof, encode_batch_ref_proof)
+    from plonky3_tpu_torch.fields import BabyBear as BF
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.serde.proof_codec import TWO_ADIC_SPEC
+    from plonky3_tpu_torch.stark import batch_ref as br
+    from plonky3_tpu_torch.stark import interaction as it
+    from plonky3_tpu_torch.stark.config import keccak_stark_config
+
+    params, secs = FriParameters(**SMALL_PARAMS), {}
+    config, inst, publics = _batch_ref_case(torch, np, dev, 8, 8, params)
+    airs = [i.air for i in inst]
+    common = br.keygen(config, airs, [8, 8, 8])
+    t0 = time.perf_counter()
+    proof = br.prove_batch_ref(config, inst, common)
+    sync(torch, dev)
+    secs[f"batch_ref_{dev}_s"] = time.perf_counter() - t0
+    wire = encode_batch_ref_proof(proof, BF, TWO_ADIC_SPEC)
+    if dev == "cpu":  # see VERIFY_ONCE
         br.verify_batch_ref(config, airs, proof, publics, common)
-        wire = encode_batch_ref_proof(proof, BF, TWO_ADIC_SPEC)
         if as_plain(decode_to_batch_ref_proof(wire, BF, TWO_ADIC_SPEC)) != (
                 as_plain(proof)):
             raise AssertionError("the small batch_ref proof changed on the "
                                  "wire")
-        kconfig = keccak_stark_config(F, E, params, device=dev)
-        binst = _bus_instances(torch, np, F, dev, 8, 6, 8)
-        t0 = time.perf_counter()
-        bproof = it.prove_batch_with_lookups(kconfig, binst)
-        torch.cuda.synchronize()
-        out[f"interaction_{dev}_s"] = time.perf_counter() - t0
+    kconfig = keccak_stark_config(F, E, params, device=dev)
+    binst = _bus_instances(torch, np, F, dev, 8, 6, 8)
+    t0 = time.perf_counter()
+    bproof = it.prove_batch_with_lookups(kconfig, binst)
+    sync(torch, dev)
+    secs[f"interaction_{dev}_s"] = time.perf_counter() - t0
+    if dev == "cpu":  # see VERIFY_ONCE
         it.verify_batch_with_lookups(kconfig, [i.air for i in binst],
                                      bproof, [[] for _ in binst])
-        proofs[dev] = (as_plain(proof), wire, as_plain(bproof))
-    if proofs["cuda"] != proofs["cpu"]:
-        raise AssertionError("the small batch_ref or interaction proofs "
-                             "differ between CUDA and the CPU")
-    emit({"phase": "serde", "small_rows": 256, "cuda_equals_cpu": True,
-          "small_batch_ref_wire_bytes": len(proofs["cuda"][1]), **out})
+    return {"plain": (as_plain(proof), wire, as_plain(bproof)),
+            "secs": secs}
 
 
 # the circle STARK (M19): its commitments go through the keccak leaf
@@ -3405,34 +3782,39 @@ def _circle_probes(config, air, proof, publics, names):
     return verify_s, tamper
 
 
-def phase_circle_small(torch, np):
-    """The circle STARK at 256 rows (circle_stark_config, FRI folding by
-    2, 10 queries): FibonacciAir and KeccakAir with 10 permutations,
-    prove() on the card equal to prove() on the CPU (plain versions),
-    every proof verified, and a changed opened value rejected."""
+def side_circle_small(np, torch, dev, name):
+    """phase_circle_small's proof of `name` on `dev`, verified; on the
+    card a changed opened value rejected."""
     from plonky3_tpu_torch.fields.mersenne31 import Mersenne31
     from plonky3_tpu_torch.fri.config import FriParameters
     from plonky3_tpu_torch.stark.config import circle_stark_config
     from plonky3_tpu_torch.stark.prover import prove
 
-    params = FriParameters(**CIRCLE_SMALL_PARAMS)
+    air, trace, publics = _air_workload(np, name, dev, log_n=8, perms=10,
+                                        F=Mersenne31)
+    config = circle_stark_config(FriParameters(**CIRCLE_SMALL_PARAMS),
+                                 device=dev)
+    t0 = time.perf_counter()
+    proof = prove(config, air, trace, publics)
+    sync(torch, dev)
+    secs = {f"{name}_{dev}_s": time.perf_counter() - t0}
+    _, tamper = _circle_probes(config, air, proof, publics,
+                               ("trace_local",) if dev == "cuda" else ())
+    return {"plain": as_plain(proof), "secs": secs, "tamper": tamper}
+
+
+def phase_circle_small(torch, np):
+    """The circle STARK at 256 rows (circle_stark_config, FRI folding by
+    2, 10 queries): FibonacciAir and KeccakAir with 10 permutations,
+    prove() on the card equal to prove() on the CPU (plain versions),
+    every proof verified, and a changed opened value rejected."""
     secs, tamper = {}, {}
     for name in ("fibonacci", "keccak"):
-        proofs = {}
-        for dev in ("cuda", "cpu"):
-            air, trace, publics = _air_workload(np, name, dev, log_n=8,
-                                                perms=10, F=Mersenne31)
-            config = circle_stark_config(params, device=dev)
-            t0 = time.perf_counter()
-            proof = prove(config, air, trace, publics)
-            torch.cuda.synchronize()
-            secs[f"{name}_{dev}_s"] = time.perf_counter() - t0
-            _, probes = _circle_probes(
-                config, air, proof, publics,
-                ("trace_local",) if dev == "cuda" else ())
-            tamper.update({f"{name}_{k}": v for k, v in probes.items()})
-            proofs[dev] = as_plain(proof)
-        if proofs["cuda"] != proofs["cpu"]:
+        cuda = side_circle_small(np, torch, "cuda", name)
+        cpu, cpu_secs, _ = cpu_side("side_circle_small", name)
+        secs.update(cuda["secs"], **cpu_secs)
+        tamper.update({f"{name}_{k}": v for k, v in cuda["tamper"].items()})
+        if cuda["plain"] != cpu:
             raise AssertionError(f"the circle {name} proof on CUDA "
                                  f"differs from the CPU's")
     emit({"phase": "circle_small", "rows": 256, "equal_cuda_cpu": True,
@@ -3571,6 +3953,202 @@ def phase_cli_circle(torch, circle):
         {"log_trace_length": 17, "proof_bytes": circle["proof_bytes"]})
 
 
+# the Goldilocks proofs launch the Poseidon2-GL kernels and no other
+GL_PATH = ("gl_sponge", "gl_compress", "gl_permute")
+GL_SMALL_PARAMS = dict(log_blowup=1, log_final_poly_len=0, max_log_arity=1,
+                       num_queries=10, commit_proof_of_work_bits=0,
+                       query_proof_of_work_bits=8)
+GL_SMALL_MONOLITH_ROWS = 16
+
+
+def _gl_launches(kernels, phase):
+    """This prove's launches: every kernel of GL_PATH, no other."""
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k in GL_PATH if launches[k] == 0]
+    launched = [k for k, v in launches.items() if v and k not in GL_PATH]
+    if missing or launched:
+        raise AssertionError(f"{phase} prove: not launched {missing}, "
+                             f"launched {launched}")
+    return launches
+
+
+def _gl_workload(np, name, device, log_n):
+    """(air, trace, public values): FibonacciAir at 2^log_n rows, or
+    MonolithGoldilocksAir over 2^log_n permutations of inputs from
+    np.random.default_rng(1), the trace generated on `device`."""
+    from plonky3_tpu_torch.gl.field import GLF
+    from plonky3_tpu_torch.models.fibonacci import (
+        FibonacciAir, generate_fibonacci_trace)
+    from plonky3_tpu_torch.models.monolith_gl_air import (
+        MonolithGoldilocksAir, generate_monolith_gl_trace)
+
+    if name == "fibonacci":
+        trace, publics = generate_fibonacci_trace(GLF, log_n, device=device)
+        return FibonacciAir(GLF), trace, publics
+    inputs = np.random.default_rng(1).integers(0, GLF.P, (1 << log_n, 8),
+                                               dtype=np.uint64)
+    return (MonolithGoldilocksAir(),
+            generate_monolith_gl_trace(inputs, device=device), [])
+
+
+def _gl_probes(config, air, proof, publics, names):
+    """The port's verifier on `proof` (host time), then on each named
+    change, which must be rejected."""
+    from plonky3_tpu_torch.stark.verifier import verify
+
+    t0 = time.perf_counter()
+    verify(config, air, proof, publics)  # raises on a rejection
+    verify_s = time.perf_counter() - t0
+    changes = {"trace_local": (_bump_trace_value, (
+        "OodEvaluationMismatch", "InvalidOpeningArgument")),
+        "trace_root": (_bump_trace_root, ("InvalidOpeningArgument",))}
+    tamper = {}
+    for name in names:
+        change, prefixes = changes[name]
+        bad = copy.deepcopy(proof)
+        change(bad, config.E)
+        tamper[name] = rejected(name, lambda: verify(config, air, bad,
+                                                     publics), prefixes)
+    return verify_s, tamper
+
+
+# gl_small's cases: (AIR, log2 rows)
+GL_SMALL_CASES = (("fibonacci", 8),
+                  ("monolith", GL_SMALL_MONOLITH_ROWS.bit_length() - 1))
+
+
+def side_gl_small(np, torch, dev, name):
+    """One gl_small case's prove_gl proof on `dev`, its seconds, and its
+    config, AIR, proof and public values."""
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.gl.stark import goldilocks_stark_config, prove_gl
+
+    log_n = dict(GL_SMALL_CASES)[name]
+    air, trace, publics = _gl_workload(np, name, dev, log_n)
+    config = goldilocks_stark_config(FriParameters(**GL_SMALL_PARAMS),
+                                     device=dev)
+    t0 = time.perf_counter()
+    proof = prove_gl(config, air, trace, publics)
+    sync(torch, dev)
+    return {"plain": as_plain(proof),
+            "secs": {f"{name}_{dev}_s": time.perf_counter() - t0},
+            "config": config, "air": air, "proof": proof, "publics": publics}
+
+
+def phase_gl_small(torch, np):
+    """The Goldilocks STARK at small size (goldilocks_stark_config,
+    GL_SMALL_PARAMS): FibonacciAir at 256 rows and MonolithGoldilocksAir
+    at GL_SMALL_MONOLITH_ROWS rows (its 3,536 columns, 884 permutations a
+    row), prove_gl on the card equal to prove_gl on the CPU (plain
+    versions, in a CPU worker); the card's proofs verified, a changed
+    opened value rejected."""
+    secs, tamper = {}, {}
+    for name, _ in GL_SMALL_CASES:
+        cuda = side_gl_small(np, torch, "cuda", name)
+        secs.update(cuda["secs"])
+        secs[f"{name}_verify_s"], probes = _gl_probes(
+            cuda["config"], cuda["air"], cuda["proof"], cuda["publics"],
+            ("trace_local",))
+        tamper.update({f"{name}_{k}": v for k, v in probes.items()})
+        cpu, cpu_secs, _ = cpu_side("side_gl_small", name)
+        secs.update(cpu_secs)
+        if cuda["plain"] != cpu:
+            raise AssertionError(f"the Goldilocks {name} proof on CUDA "
+                                 f"differs from the CPU's")
+    emit({"phase": "gl_small", "fibonacci_rows": 256,
+          "monolith_rows": GL_SMALL_MONOLITH_ROWS, "equal_cuda_cpu": True,
+          "seconds": secs, "tamper": tamper})
+
+
+def phase_gl_fibonacci(torch, np, kernels, card):
+    """FibonacciAir over Goldilocks at 2^GL_FIB_LOG_N rows, the tall and
+    narrow case (goldilocks_stark_config(new_benchmark())): one prove with
+    spans and per-launch events, its launches, peak memory, verified, a
+    changed trace root rejected. Returns launches and per-proof bounds."""
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.gl.stark import goldilocks_stark_config, prove_gl
+
+    t0 = time.perf_counter()
+    air, trace, publics = _gl_workload(np, "fibonacci", "cuda",
+                                       GL_FIB_LOG_N)
+    gen_s = time.perf_counter() - t0
+    config = goldilocks_stark_config(FriParameters.new_benchmark(),
+                                     device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    spans = {}
+
+    def run():
+        t0 = time.perf_counter()
+        proof = prove_gl(config, air, trace, publics, spans=spans)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t0
+
+    (proof, prove_s), calls = recorded(torch, kernels, run)
+    launches = _gl_launches(kernels, "gl_fibonacci")
+    peak_mem = torch.cuda.max_memory_allocated()
+    verify_s, tamper = _gl_probes(config, air, proof, publics,
+                                  ("trace_root",))
+    per_proof = launch_bounds(card, calls)
+    emit({"phase": "gl_fibonacci", "rows": 1 << GL_FIB_LOG_N,
+          "width": air.width, "trace_gen_s": gen_s,
+          "cold_events_prove_s": prove_s, "peak_mem_bytes": peak_mem,
+          "launches": launches, "verify_s": verify_s, "tamper": tamper,
+          "proof_bytes": proof.size_in_bytes(), "spans": spans})
+    emit({"phase": "gl_fibonacci_per_proof", "kernels": per_proof})
+    return dict(launches=launches, per_proof=per_proof, device_ms={})
+
+
+def phase_gl_monolith_air(torch, np, kernels, card):
+    """MonolithGoldilocksAir at its full width (3,536 columns) over
+    2^GL_MONOLITH_LOG_N permutations (a cut of depth from the CLI
+    objectives' 2^17 rows, for the script's time), the trace generated on
+    the card, under goldilocks_stark_config(new_benchmark()): a cold prove
+    (per-launch events) and a warm one with spans, equal; launches, peak
+    memory, the port's verify, two probes rejected, and a profiled prove
+    (device busy share). Returns launches, per-proof bounds and the
+    profile's device ms."""
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.gl.stark import goldilocks_stark_config, prove_gl
+    from plonky3_tpu_torch.models.monolith_gl_air import NUM_MONOLITH_GL_COLS
+
+    n = 1 << GL_MONOLITH_LOG_N
+    t0 = time.perf_counter()
+    air, trace, _ = _gl_workload(np, "monolith", "cuda", GL_MONOLITH_LOG_N)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if trace.shape != (n, NUM_MONOLITH_GL_COLS):
+        raise AssertionError(f"MonolithGoldilocksAir trace "
+                             f"{tuple(trace.shape)}")
+    config = goldilocks_stark_config(FriParameters.new_benchmark(),
+                                     device="cuda")
+    timed = timer(torch, config, air, trace)
+    torch.cuda.reset_peak_memory_stats()
+    spans = {"cold": {}, "warm": {}}
+    (first, cold_s), calls = recorded(
+        torch, kernels, lambda: timed(prove_gl, spans=spans["cold"]))
+    kernels.reset_launches()
+    proof, warm_s = timed(prove_gl, spans=spans["warm"])
+    launches = _gl_launches(kernels, "gl_monolith_air")
+    peak_mem = torch.cuda.max_memory_allocated()
+    if as_plain(first) != as_plain(proof):
+        raise AssertionError("two MonolithGoldilocksAir proves differ")
+    verify_s, tamper = _gl_probes(config, air, proof, [],
+                                  ("trace_local", "trace_root"))
+    per_proof = launch_bounds(card, calls)
+    emit({"phase": "gl_monolith_air", "rows": n, "width": air.width,
+          "perms": n, "cut": f"depth 2^{GL_MONOLITH_LOG_N} rows",
+          "trace_gen_s": gen_s, "cold_events_prove_s": cold_s,
+          "warm_prove_s": warm_s, "perms_per_s": n / warm_s,
+          "peak_mem_bytes": peak_mem, "launches": launches,
+          "equal_proofs": 2, "verify_s": verify_s, "tamper": tamper,
+          "proof_bytes": proof.size_in_bytes(), "spans": spans})
+    emit({"phase": "gl_monolith_air_per_proof", "kernels": per_proof})
+    device_ms = profile_prove(torch, kernels, prove_gl, config, air, trace,
+                              warm_s, phase="gl_monolith_air_profile")
+    return dict(launches=launches, per_proof=per_proof, device_ms=device_ms)
+
+
 def host_cpu() -> str:
     """The first CPU's model name with its vendor, family, model and
     clock from /proc/cpuinfo (where the name reads "unknown", family
@@ -3686,8 +4264,6 @@ def profile_prove(torch, kernels, prove, config, air, trace, warm_s,
     per-proof time comes from CUDA events (`recorded`). The prove is
     profiled once: a second pass, seconds long at 10^5 launches, came out
     short as often as the first."""
-    from torch.autograd import DeviceType
-
     def run():
         kernels.reset_launches()
         prove(config, air, trace, [])
@@ -3695,9 +4271,7 @@ def profile_prove(torch, kernels, prove, config, air, trace, warm_s,
     torch.cuda.synchronize()
     prof = _profile(torch, run)
     launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
+    rows = device_records(prof)
     device_ms, calls = collections.Counter(), collections.Counter()
     for us, k, c in rows:
         for name, tags in PROFILE_NAMES.items():
@@ -3728,15 +4302,20 @@ def profile_prove(torch, kernels, prove, config, air, trace, warm_s,
 # profiler kernel names of each record: every tag must appear
 PROFILE_NAMES = {"ntt_k1": ("ntt_kernel<", "true>"),
                  "ntt_k2": ("ntt_kernel<", "false>"),
-                 "keccak_sponge": ("sponge_rows_kernel",),
-                 "keccak_compress": ("compress_kernel",),
+                 # "::" keeps gl_sponge_rows_kernel and gl_compress_kernel
+                 # out of the keccak records
+                 "keccak_sponge": ("::sponge_rows_kernel",),
+                 "keccak_compress": ("::compress_kernel",),
                  "keccak_ladder": ("merkle_ladder_kernel",),
                  "keccak256_chain": ("keccak256_chain_kernel",),
                  "keccak_grind": ("keccak_grind_kernel",),
                  "poseidon2_duplex_chain": ("duplex_chain_kernel<23",),
                  "poseidon2_grind": ("duplex_grind_kernel<23",),
                  "poseidon2_duplex_chain_babybear": ("duplex_chain_kernel<21",),
-                 "poseidon2_grind_babybear": ("duplex_grind_kernel<21",)}
+                 "poseidon2_grind_babybear": ("duplex_grind_kernel<21",),
+                 "gl_sponge": ("gl_sponge_rows_kernel",),
+                 "gl_compress": ("gl_compress_kernel",),
+                 "gl_permute": ("gl_permute_kernel",)}
 
 
 def main(argv=None) -> int:
@@ -3759,6 +4338,39 @@ def main(argv=None) -> int:
         return out
 
     card = timed("card", phase_card, torch, kernels)
+    try:
+        start_cpu_jobs()
+        return _run_phases(torch, np, kernels, card, seconds, timed)
+    finally:
+        stop_cpu_jobs()
+
+
+# The CPU halves of the CUDA == CPU checks, in the order the phases read
+# them: (side function, its arguments after the device)
+CPU_JOBS = (("side_gl_sponge", ()),
+            ("side_small", ("pow8",)), ("side_small", ("pow0",)),
+            ("side_keccak_air_small", ("fibonacci",)),
+            ("side_keccak_air_small", ("keccak",)),
+            ("side_pair", ("blake3",)), ("side_pair", ("PeriodicAir",)),
+            ("side_pair", ("NoNextRowAir",)),
+            ("side_pair", ("babybear_keccak-f",)),
+            ("side_pair", ("babybear_poseidon2",)),
+            ("side_pair", ("sha256_keccak",)),
+            ("side_pair", ("sha256_poseidon2",)),
+            ("side_pair", ("poseidon1_keccak",)),
+            ("side_pair", ("poseidon1_poseidon2",)),
+            ("side_pair", ("joined",)),
+            ("side_zk_small", ("fibonacci",)), ("side_zk_small", ("keccak",)),
+            ("side_preprocessed_small", ()), ("side_lookup_small", ()),
+            ("side_batch_small", ("keccak",)),
+            ("side_batch_small", ("poseidon2",)), ("side_serde_small", ()),
+            ("side_circle_small", ("fibonacci",)),
+            ("side_circle_small", ("keccak",)),
+            ("side_gl_small", ("fibonacci",)), ("side_gl_small", ("monolith",)))
+
+
+def _run_phases(torch, np, kernels, card, seconds, timed):
+    """Every phase after the card's, and the kernels line."""
     records = timed("kernels", phase_kernels, torch, np, card)
     mixed = timed("mixed", phase_mixed, torch, np, kernels)
     timed("small", phase_small, torch, np)
@@ -3799,6 +4411,10 @@ def main(argv=None) -> int:
     mono = timed("monolith_air", phase_monolith_air, torch, np, kernels,
                  card)
     timed("cli_circle", phase_cli_circle, torch, circle)
+    timed("gl_small", phase_gl_small, torch, np)
+    glf = timed("gl_fibonacci", phase_gl_fibonacci, torch, np, kernels, card)
+    glm = timed("gl_monolith_air", phase_gl_monolith_air, torch, np,
+                kernels, card)
     # launches, proof_* : the main path (the fast prover) of the kernel's
     # config, keccak or (the duplex transcript's kernels) Poseidon2, and
     # for BabyBear's duplex kernels (<21, 7>, `*_babybear`) the BabyBear
@@ -3823,9 +4439,14 @@ def main(argv=None) -> int:
     for name, rec in records.items():
         if name.endswith("_babybear"):
             main = bbp2
+        elif name in GL_PATH:
+            main = glm
         else:
             main = p2 if name.startswith("poseidon2") else fast
         paths = [("", main)]
+        if name in GL_PATH:
+            paths.append(("_gl_fibonacci", glf))
+            rec["launches_gl_fibonacci"] = glf["launches"][name]
         if main is fast:
             paths.append(("_prove", full))
             rec["launches_prove"] = full["launches"][name]

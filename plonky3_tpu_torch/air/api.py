@@ -110,10 +110,13 @@ def get_log_num_quotient_chunks(air: BaseAir) -> int:
 def check_constraints(air: BaseAir, trace_std: np.ndarray, public_values):
     """Every row of a standard-form (n, width) numpy trace against the
     constraints; the next row of the last wraps to the first (the
-    transition filter masks it). Returns the failures, [] when none."""
+    transition filter masks it). Returns the failures, [] when none.
+    A field wider than 32 bits (Goldilocks, a uint64 trace) evaluates in
+    Python ints."""
     n = trace_std.shape[0]
     backend = DebugBackend(air.field, n)
-    tr = trace_std.astype(np.uint64)
+    dt = object if backend.big else np.uint64
+    tr = np.asarray(trace_std).astype(np.uint64).astype(dt)
     nxt = np.roll(tr, -1, axis=0)
     first = np.zeros(n, np.uint64)
     first[0] = 1
@@ -121,6 +124,7 @@ def check_constraints(air: BaseAir, trace_std: np.ndarray, public_values):
     last[-1] = 1
     trans = np.ones(n, np.uint64)
     trans[-1] = 0
+    first, last, trans = (v.astype(dt) for v in (first, last, trans))
     sels = {"is_first_row": first, "is_last_row": last,
             "is_transition": trans}
 
@@ -134,9 +138,9 @@ def check_constraints(air: BaseAir, trace_std: np.ndarray, public_values):
     pcols = air.periodic_columns()
     builder = _make_builder(
         backend, air.width, air.num_public_values, entry,
-        lambda j: np.full(n, public_values[j] % air.field.P, np.uint64),
+        lambda j: np.full(n, public_values[j] % air.field.P, dt),
         num_periodic=len(pcols),
         periodic_entry=lambda j: np.asarray(
-            pcols[j], np.uint64)[np.arange(n) % len(pcols[j])])
+            pcols[j], np.uint64).astype(dt)[np.arange(n) % len(pcols[j])])
     air.eval(builder)
     return backend.failures

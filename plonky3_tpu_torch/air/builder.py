@@ -417,13 +417,16 @@ class VerifierBackend:
 
 
 class DebugBackend:
-    """Exact row-wise evaluation on numpy uint64 arrays of standard-form
-    values (31-bit fields: a product of two fits); lists each failing
-    constraint with its first ten failing rows, labelled "a/b/<index>"
-    under the namespaces pushed (air/src/named.rs NamedAirBuilder)."""
+    """Exact row-wise evaluation of standard-form values; lists each
+    failing constraint with its first ten failing rows, labelled
+    "a/b/<index>" under the namespaces pushed (air/src/named.rs
+    NamedAirBuilder). Values are numpy uint64 arrays for the 31-bit
+    fields (a product of two fits) and object arrays of Python ints for
+    wider ones (Goldilocks), where a uint64 product would wrap."""
 
     def __init__(self, F, n_rows):
         self.P = np.uint64(F.P)
+        self.big = F.P > 0xFFFFFFFF
         self.n = n_rows
         self.failures = []
         self.idx = 0
@@ -441,23 +444,31 @@ class DebugBackend:
         return "/".join(self._namespaces) + f"/{self.idx}"
 
     def const(self, c):
+        if self.big:
+            return np.full(self.n, int(c) % int(self.P), dtype=object)
         return np.full(self.n, c % int(self.P), dtype=np.uint64)
 
     def const_vec(self, values):
         # a stacked value is a list here, so one scalar a lane
+        if self.big:
+            return [int(v) % int(self.P) for v in values]
         return [np.uint64(int(v) % int(self.P)) for v in values]
 
     def add(self, a, b):
-        return _ew(lambda x, y: (x + y) % self.P, a, b)
+        P = int(self.P) if self.big else self.P
+        return _ew(lambda x, y: (x + y) % P, a, b)
 
     def sub(self, a, b):
-        return _ew(lambda x, y: (x + self.P - y) % self.P, a, b)
+        P = int(self.P) if self.big else self.P
+        return _ew(lambda x, y: (x + P - y) % P, a, b)
 
     def mul(self, a, b):
-        return _ew(lambda x, y: (x * y) % self.P, a, b)
+        P = int(self.P) if self.big else self.P
+        return _ew(lambda x, y: (x * y) % P, a, b)
 
     def neg(self, a):
-        return _ew(lambda x, _: (self.P - x) % self.P, a, a)
+        P = int(self.P) if self.big else self.P
+        return _ew(lambda x, _: (P - x) % P, a, a)
 
     def emit(self, c):
         bad = np.nonzero(c != 0)[0]

@@ -1,6 +1,7 @@
-"""The Monolith-31 permutation over Mersenne-31 (the `monolith` crate).
+"""The Monolith permutations over Mersenne-31 and Goldilocks (the
+`monolith` crate).
 
-Port of the Mersenne-31 half of `plonky3_tpu/hashes/monolith.py`
+Port of `plonky3_tpu/hashes/monolith.py`. The Mersenne-31 half
 (monolith/src/monolith.rs:1-24): Concrete; then 5 x (Bars -> Bricks ->
 Concrete -> AddRC); then Bars -> Bricks -> Concrete.
   Bars (bars/mersenne31.rs): chi-like S-boxes on (8, 8, 8, 7)-bit limbs
@@ -13,8 +14,14 @@ Concrete -> AddRC); then Bars -> Bricks -> Concrete.
 
 `permute_host` (one state of ints) and `permute_np` (numpy batches) are
 the reference's; `permute` runs a batch as int64 tensors on their device
-(the trace generator's arithmetic). The Goldilocks instance waits for the
-port's 64-bit words.
+(the trace generator's arithmetic).
+
+The Goldilocks half (reference :159-252; monolith/src/bars/goldilocks.rs,
+MonolithGoldilocks8): Bars on eight 8-bit limbs of the first 4 lanes as
+one SWAR chi over the 64-bit word and a rotate by one inside each byte
+(`_bar64_swar8`; `bar64_tensor` on int64 tensors holding the u64 bits,
+`gl/field.py`), the MDS rows of widths 8 and 12, SHAKE-128 constants
+rejection-sampled as u64 below p.
 """
 
 from __future__ import annotations
@@ -181,3 +188,103 @@ class MonolithM31:
                 x = (x + torch.tensor(self.rc[r], dtype=torch.int64,
                                       device=x.device)) % _P
         return x
+
+
+# ---------------------------------------------------------------------------
+# Monolith-64 over Goldilocks, LOOKUP_BITS = 8 (monolith/src/bars/
+# goldilocks.rs)
+# ---------------------------------------------------------------------------
+_GL_P = (1 << 64) - (1 << 32) + 1
+MDS_ROW_8_GL = (23, 8, 13, 10, 7, 6, 21, 8)
+MDS_ROW_12_GL = (7, 23, 8, 26, 13, 10, 9, 7, 6, 22, 21, 8)
+_M64 = (1 << 64) - 1
+
+
+def _bar64_swar8(val: int) -> int:
+    """SWAR chi on eight 8-bit lanes, then a rotate left by one inside
+    each byte (bars/goldilocks.rs:48-68)."""
+    val &= _M64
+    nv = (~val) & _M64
+    rot1 = ((nv & 0x8080808080808080) >> 7) | (
+        (nv & 0x7F7F7F7F7F7F7F7F) << 1)
+    rot2 = ((val & 0xC0C0C0C0C0C0C0C0) >> 6) | (
+        (val & 0x3F3F3F3F3F3F3F3F) << 2)
+    rot3 = ((val & 0xE0E0E0E0E0E0E0E0) >> 5) | (
+        (val & 0x1F1F1F1F1F1F1F1F) << 3)
+    tmp = val ^ (rot1 & rot2 & rot3 & _M64)
+    return (((tmp & 0x8080808080808080) >> 7)
+            | ((tmp & 0x7F7F7F7F7F7F7F7F) << 1)) & _M64
+
+
+def _rotl_bytes(v, r: int):
+    """Rotate each byte of int64 words left by r: the right shift masked
+    after it (int64 shifts are arithmetic)."""
+    hi = {1: 0x0101010101010101, 2: 0x0303030303030303,
+          3: 0x0707070707070707}[r]
+    lo = {1: 0x7F7F7F7F7F7F7F7F, 2: 0x3F3F3F3F3F3F3F3F,
+          3: 0x1F1F1F1F1F1F1F1F}[r]
+    return ((v >> (8 - r)) & hi) | ((v & lo) << r)
+
+
+def bar64_tensor(v):
+    """`_bar64_swar8` of every int64 word (u64 bits) of a tensor."""
+    tmp = v ^ (_rotl_bytes(~v, 1) & _rotl_bytes(v, 2) & _rotl_bytes(v, 3))
+    return _rotl_bytes(tmp, 1)
+
+
+def _shake_constants_gl(width: int, num_full_rounds: int):
+    """SHAKE-128("Monolith" || width || rounds + 1 || p as 8 bytes LE ||
+    [8] * 8), rejection-sampled as u64 below p (monolith.rs:87-100,
+    util.rs:14)."""
+    shake = hashlib.shake_128()
+    shake.update(b"Monolith")
+    shake.update(bytes([width, num_full_rounds + 1]))
+    shake.update(_GL_P.to_bytes(8, "little"))
+    shake.update(bytes([8] * 8))
+    stream = shake.digest(16 * width * num_full_rounds * 16)
+    pos, out = 0, []
+    for _ in range(num_full_rounds):
+        rcs = []
+        while len(rcs) < width:
+            v = int.from_bytes(stream[pos:pos + 8], "little")
+            pos += 8
+            if v < _GL_P:
+                rcs.append(v)
+        out.append(tuple(rcs))
+    return tuple(out)
+
+
+@dataclass(frozen=True)
+class MonolithGoldilocks:
+    """Monolith-64 over Goldilocks, LOOKUP_BITS 8, 4 Bars, 5 + 1 rounds
+    (monolith/src/monolith.rs:181 MonolithGoldilocks8; width 8 the
+    compression mode, 12 the sponge mode), on the host in exact ints."""
+
+    width: int = 12
+    num_full_rounds: int = 5
+    num_bars: int = 4
+
+    def __post_init__(self):
+        if self.width not in (8, 12):
+            raise ValueError(f"width {self.width}: 8 or 12")
+        object.__setattr__(self, "rc", _shake_constants_gl(
+            self.width, self.num_full_rounds))
+        object.__setattr__(self, "mds_row", (
+            MDS_ROW_8_GL if self.width == 8 else MDS_ROW_12_GL))
+
+    def _concrete(self, state):
+        w, row = self.width, self.mds_row
+        return [sum(row[(j - i) % w] * state[j] for j in range(w)) % _GL_P
+                for i in range(w)]
+
+    def permute_host(self, state):
+        state = self._concrete([x % _GL_P for x in state])
+        for r in range(self.num_full_rounds + 1):
+            state = [_bar64_swar8(x) if i < self.num_bars else x
+                     for i, x in enumerate(state)]
+            for i in range(self.width - 1, 0, -1):
+                state[i] = (state[i] + state[i - 1] * state[i - 1]) % _GL_P
+            state = self._concrete(state)
+            if r < self.num_full_rounds:
+                state = [(x + c) % _GL_P for x, c in zip(state, self.rc[r])]
+        return state

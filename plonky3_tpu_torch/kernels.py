@@ -29,7 +29,8 @@ LAUNCHES = {"ntt_k1": 0, "ntt_k2": 0, "keccak_sponge": 0,
             "keccak_compress": 0, "keccak_ladder": 0, "keccak256_chain": 0,
             "keccak_grind": 0, "poseidon2_duplex_chain": 0,
             "poseidon2_grind": 0, "poseidon2_duplex_chain_babybear": 0,
-            "poseidon2_grind_babybear": 0}
+            "poseidon2_grind_babybear": 0, "gl_sponge": 0,
+            "gl_compress": 0, "gl_permute": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +53,11 @@ _SIGNATURES = {
         "poseidon2_duplex_chain": [_P, _P, _L, _P, _P, _U, _U, _U, _I, _I,
                                    _P],
         "poseidon2_grind": [_P, _I, _I, _P, _U, _U, _U, _I, _I, _P, _P],
+    },
+    "goldilocks": {
+        "gl_sponge_rows": [_P, _L, _I, _P, _P, _P],
+        "gl_compress": [_P, _L, _P, _L, _L, _P, _P, _P],
+        "gl_permute": [_P, _L, _P, _P],
     },
 }
 

@@ -163,6 +163,9 @@ class MerkleTreeMmcs:
     sponge: object
     compressor: object
     cap_height: int = 0
+    # the dtype of opened values and digests on the wire (Goldilocks:
+    # uint64, `gl/merkle.py`)
+    wire_dtype = np.uint32
 
     def _eff_cap(self, log_max: int) -> int:
         """The cap height clamps to the tree height."""
@@ -183,7 +186,7 @@ class MerkleTreeMmcs:
 
     def _digests_m(self, wire):
         """Wire digests -> the words the compressor hashes."""
-        d = np.asarray(wire, dtype=np.uint32)
+        d = np.asarray(wire, dtype=self.wire_dtype)
         return self.F.to_monty_np(d) if self.digest_is_field else d
 
     def commit(self, mats) -> MerkleProverData:
@@ -271,7 +274,7 @@ class MerkleTreeMmcs:
     def _cap_ok(self, root_std, log_max):
         """The commitment as a (2^cap, 8) array, or None when its shape
         does not match the effective cap height."""
-        cap = np.array(root_std, dtype=np.uint32)
+        cap = np.array(root_std, dtype=self.wire_dtype)
         if cap.ndim != 2 or cap.shape[0] != 1 << self._eff_cap(log_max):
             return None
         return cap
@@ -337,7 +340,8 @@ class MerkleTreeMmcs:
 
         def tips(h):
             """Leaf digests of the height-h matrices' rows, or None."""
-            parts = [np.array([rows[i] for rows in rows_pq], dtype=np.uint32)
+            parts = [np.array([rows[i] for rows in rows_pq],
+                              dtype=self.wire_dtype)
                      for i in order if heights[i] == h]
             if not parts:
                 return None
@@ -359,7 +363,7 @@ class MerkleTreeMmcs:
                 digest = self.compressor.compress_np(digest, inj)
         digest = self.digests_std(digest)
         if eff_cap == 0:
-            return bool((digest == np.array(root_std, np.uint32)).all())
+            return bool((digest == np.array(root_std, self.wire_dtype)).all())
         cap = self._cap_ok(root_std, log_max)
         return cap is not None and bool((digest == cap[idx]).all())
 
@@ -388,7 +392,7 @@ class MerkleTreeMmcs:
             """Leaf digests of the height-h matrices' rows of the lead
             queries, or None when no matrix has height h."""
             parts = [np.array([rows_pq[q][i] for q in leads],
-                              dtype=np.uint32)
+                              dtype=self.wire_dtype)
                      for i in order if heights[i] == h]
             if not parts:
                 return None
@@ -443,7 +447,7 @@ class MerkleTreeMmcs:
             return False
         digests = self.digests_std(digests)
         if self._eff_cap(log_max) == 0:
-            want = np.array(root_std, dtype=np.uint32)
+            want = np.array(root_std, dtype=self.wire_dtype)
             return bool((digests[0] == want).all())
         # frontier nodes that reach the cap layer each meet their entry
         cap = self._cap_ok(root_std, log_max)

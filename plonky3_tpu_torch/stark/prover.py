@@ -211,7 +211,7 @@ def _quotient(config, air, trace_domain, quotient_domain, rows, rows_order,
 
 
 def _fold_blocks(F, E, air, nq, step, columns, sels, periodic, publics_m,
-                 alpha_pows, block_rows):
+                 alpha_pows, block_rows, backend=ProverBackend):
     """The alpha-folded constraints of `air.eval` over nq rows: (nq, D),
     `block_rows` rows at a time. The next row of a row is `step` rows
     ahead, cyclically (the reference's roll); columns(a, b) gives rows a
@@ -219,7 +219,9 @@ def _fold_blocks(F, E, air, nq, step, columns, sels, periodic, publics_m,
     block's rows, with the `step` rows after it, are one copy in which
     every local and next column is a contiguous view. `sels` (nq,) and
     `periodic` (nq, k) are in the fold's row order. The fold of a row
-    reads no other row's, so the blocks give the whole domain's bits."""
+    reads no other row's, so the blocks give the whole domain's bits.
+    `backend(F, E, alpha_pows)` folds a block (Goldilocks:
+    gl/stark.py::GLProverBackend)."""
     if block_rows < 1 or nq % block_rows or block_rows & (block_rows - 1):
         raise ValueError(f"a fold block of {block_rows} rows for {nq}")
     out = None
@@ -229,7 +231,7 @@ def _fold_blocks(F, E, air, nq, step, columns, sels, periodic, publics_m,
         part = _fold_block(
             F, E, air, cols, step, {k: v[a:b] for k, v in sels.items()},
             None if periodic is None else periodic[a:b].t().contiguous(),
-            publics_m, alpha_pows)
+            publics_m, alpha_pows, backend)
         del cols
         if out is None:
             out = part.new_empty((nq, part.shape[1]))
@@ -240,11 +242,11 @@ def _fold_blocks(F, E, air, nq, step, columns, sels, periodic, publics_m,
 
 
 def _fold_block(F, E, air, cols, step, sels, periodic, publics_m,
-                alpha_pows):
+                alpha_pows, backend=ProverBackend):
     """One block: cols (w, B + step) transposed rows, sels (B,) and
     periodic (k, B) for its B rows. Returns (B, D)."""
     nb = cols.shape[1] - step
-    backend = ProverBackend(F, E, alpha_pows)
+    backend = backend(F, E, alpha_pows)
 
     def entry(kind, j):
         if kind == "local":

@@ -772,3 +772,78 @@ def test_circle_proof_equals_cpu(cuda, name):
         verify(config, air, proof, publics)
         proofs.append(proof)
     assert proofs[0] == proofs[1]
+
+
+def _gl_words(rng, shape, device):
+    from plonky3_tpu_torch.gl.field import GLF, to_tensor
+
+    x = rng.integers(0, GLF.P, size=shape, dtype=np.uint64)
+    if x.size:
+        x.reshape(-1)[0] = GLF.P - 1
+    return to_tensor(x, device)
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (3, 2), (33, 3), (100, 4),
+                                 (130, 7), (64, 64), (4, 3536)])
+def test_gl_sponge_matches_plain(cuda, h, w):
+    from plonky3_tpu_torch.hashes import poseidon2_goldilocks_cuda as pgc
+    from plonky3_tpu_torch.fields import goldilocks_device as gd
+
+    mat = _gl_words(np.random.default_rng(w), (h, w), cuda)
+    got = pgc.gl_sponge_rows(mat)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), gd.gl_sponge_rows_plain(mat.cpu()))
+
+
+@pytest.mark.parametrize("n", [1, 5, 257, 4096])
+def test_gl_compress_and_permute_match_plain(cuda, n):
+    from plonky3_tpu_torch.hashes import poseidon2_goldilocks_cuda as pgc
+    from plonky3_tpu_torch.fields import goldilocks_device as gd
+
+    rng = np.random.default_rng(n)
+    level = _gl_words(rng, (2 * n, 4), cuda)
+    pairs = level.reshape(n, 2, 4)
+    got = pgc.gl_compress(pairs[:, 0], pairs[:, 1])
+    want = gd.gl_compress_plain(pairs[:, 0], pairs[:, 1])
+    states = _gl_words(rng, (n, 8), cuda)
+    got_p = pgc.gl_permute(states)
+    want_p = gd.poseidon2_goldilocks_plain(states)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_p, want_p)
+
+
+@pytest.mark.parametrize("name", ["fibonacci", "monolith"])
+def test_gl_proof_equals_cpu(cuda, name):
+    """Goldilocks proofs (Poseidon2-GL trees and transcript, a 6-bit
+    query grind) on CUDA equal the CPU's; the port's verifier accepts
+    them."""
+    from plonky3_tpu_torch.fri.config import FriParameters
+    from plonky3_tpu_torch.gl.field import GLF
+    from plonky3_tpu_torch.gl.stark import goldilocks_stark_config, prove_gl
+    from plonky3_tpu_torch.models.fibonacci import (FibonacciAir,
+                                                    generate_fibonacci_trace)
+    from plonky3_tpu_torch.models.monolith_gl_air import (
+        MonolithGoldilocksAir, generate_monolith_gl_trace)
+    from plonky3_tpu_torch.stark.verifier import verify
+
+    params = FriParameters(log_blowup=1, log_final_poly_len=0,
+                           max_log_arity=1, num_queries=6,
+                           commit_proof_of_work_bits=0,
+                           query_proof_of_work_bits=6)
+    proofs = []
+    for dev in ("cuda", "cpu"):
+        if name == "fibonacci":
+            air = FibonacciAir(GLF)
+            trace, publics = generate_fibonacci_trace(GLF, 8, device=dev)
+        else:
+            air, publics = MonolithGoldilocksAir(), []
+            trace = generate_monolith_gl_trace(_gl_words(
+                np.random.default_rng(3), (8, 8), "cpu").numpy().view(
+                np.uint64), device=dev)
+        config = goldilocks_stark_config(params, device=dev)
+        proof = prove_gl(config, air, trace, publics)
+        torch.cuda.synchronize()
+        if name == "fibonacci" or dev == "cuda":
+            verify(config, air, proof, publics)
+        proofs.append(proof)
+    assert proofs[0] == proofs[1]
