@@ -248,7 +248,33 @@ Phases, each printed as one JSON line:
            2^16 rows (a cut of depth), the trace generated on the card,
            under new_benchmark(): cold and warm proves, equal, spans,
            launches, peak memory, verified, two probes rejected,
-           per-proof bounds, a profile (device busy share).
+           per-proof bounds, a profile (device busy share);
+  m21_small  STIR (TwoAdicStirPcs at 2^8 x 8), WHIR (n_vars 10) and the
+           multilinear STARK (FibonacciAir at 2^8 rows) on the card equal
+           to the same proofs on the CPU, verified;
+  pcs_comparison  `python -m plonky3_tpu_torch.cli pcs-comparison
+           --log-trace-length 18 --width 16 --fri benchmark
+           --security-level 100 --max-pow-bits 20` in its own process
+           (exit 0, the FRI, STIR and WHIR lines, WHIR's soundness line;
+           WHIR's codeword 2^24 rows of one column), then STIR and WHIR
+           on the same matrix and point in this process: a cold prove
+           with per-launch events and spans, a warm one equal to it,
+           launches (K1, K2, the <23, 3> grind, nothing else), peak
+           memory, verified, a changed opened value and a changed query
+           row rejected with STIR's and WHIR's error classes, a profile
+           (device idle share), per-proof bounds;
+  multi_stark  FibonacciAir at 2^20 rows through prove_multi_stark over
+           WHIR (the stacked MLE 2^21 entries, WhirConfig.from_security(
+           100, johnson, 21, blowup 4, k 2, 16 PoW bits)): one prove with
+           spans and per-launch events, launches, peak memory,
+           verify_multi_stark, a changed public value rejected.
+`--phases a,b` runs the card and kernels phases and the named ones only
+(a phase that reads another's result needs it named too; a name no
+phase has fails the run at its end); without it every phase runs, as
+above. The kernels phase holds K1/K2 at the M21
+paths' shapes too (2^24 x 1, WHIR's commit; 2^22 x 4; STIR's 2^18 x 16
+iDFT and 2^20 x 16 LDE; the `*_whir_commit`, `*_whir_ext_round`,
+`*_stir_idft`, `*_stir_lde` keys), each launch timed and bounded.
 The kernels phase also holds the Poseidon2-GL kernels (csrc/goldilocks.cu)
 against their plain versions: the leaf sponge at 2^17 x 3,536 (the plain
 version over 4 sampled rows), the compression on a 2^16-node level, the
@@ -1401,6 +1427,7 @@ def phase_kernels(torch, np, card):
           "pow_bits": SWEEP_BITS, **sweep})
     phase_kernels_poseidon2(torch, np, card, rng, records)
     phase_kernels_goldilocks(torch, np, card, records)
+    phase_kernels_m21(torch, np, card, records)
     return records
 
 
@@ -1607,12 +1634,12 @@ def _cpu_job(fn, args):
     return out["plain"], out.get("secs", {}), time.perf_counter() - t0
 
 
-def start_cpu_jobs():
-    """Submit every job of CPU_JOBS, in the order the phases read them, to
-    a pool of CPU_WORKERS spawned processes (once). A script that imports
-    this module and runs phases guards its own body with
-    `if __name__ == "__main__"`: a spawned worker imports the main
-    module."""
+def start_cpu_jobs(phases=None):
+    """Submit every job of CPU_JOBS (or those that `phases` read), in the
+    order the phases read them, to a pool of CPU_WORKERS spawned
+    processes (once). A script that imports this module and runs phases
+    guards its own body with `if __name__ == "__main__"`: a spawned
+    worker imports the main module."""
     if _CPU:
         return
     import multiprocessing
@@ -1620,7 +1647,9 @@ def start_cpu_jobs():
     pool = multiprocessing.get_context("spawn").Pool(CPU_WORKERS,
                                                      _cpu_worker_init)
     _CPU["pool"] = pool
-    _CPU["jobs"] = {job: pool.apply_async(_cpu_job, job) for job in CPU_JOBS}
+    _CPU["jobs"] = {(fn, args): pool.apply_async(_cpu_job, (fn, args))
+                    for phase, fn, args in CPU_JOBS
+                    if phases is None or phase in phases}
 
 
 def cpu_side(fn, *args):
@@ -4149,6 +4178,502 @@ def phase_gl_monolith_air(torch, np, kernels, card):
     return dict(launches=launches, per_proof=per_proof, device_ms=device_ms)
 
 
+# ---------------------------------------------------------------------------
+# M21: STIR, WHIR and the multilinear STARK
+# ---------------------------------------------------------------------------
+# the CLI's pcs-comparison at full size: 2^18 x 16, blowup 4, 100 bits, the
+# WHIR codeword 2^24 rows (KoalaBear's two-adicity). 20 PoW bits: at 16
+# (and 12) the reference's STIR schedule (StirConfig.new, capacity bound)
+# refuses a degree of 2^18 (round 4's eta exceeds its side condition), and
+# so does the port's, which copies it
+PCS_ARGS = dict(field="koala-bear", log_trace_length=18, width=16,
+                fri="benchmark", log_blowup=2, log_folding_factor=2,
+                security_level=100, max_pow_bits=20)
+PCS_CLI_ARGS = ("pcs-comparison", "--log-trace-length", "18", "--width",
+                "16", "--fri", "benchmark", "--security-level", "100",
+                "--max-pow-bits", "20")
+MS_LOG_N = 20  # FibonacciAir rows of the multi_stark phase
+M21_PATH = ("ntt_k1", "ntt_k2", "poseidon2_grind")
+# the NTT shapes of the M21 paths held bit for bit in the kernels phase:
+# WHIR's commit of the CLI's 2^22-coefficient MLE (one column, 2^24 rows)
+# and the multi_stark phase's first extension round (2^20 coefficients of
+# D = 4 columns onto 2^22 rows); STIR's LDE (2^18 x 16 onto 2^20) beside
+M21_NTT_CASES = ((24, 1, False, False, "whir_commit"),
+                 (22, 4, False, False, "whir_ext_round"),
+                 (18, 16, True, False, "stir_idft"),
+                 (20, 16, False, True, "stir_lde"))
+
+
+def _plan_timed(torch, card, nc, F, x, log_n, inverse, zero_top):
+    """Each launch of `nc.plan` run and timed alone (torch.profiler) from
+    its own buffers: {"k1"/"k2": [launches, ms, bound ms]}."""
+    steps = nc.plan(log_n, zero_top)
+    n = 1 << log_n
+    bufs = [torch.empty((n, x.shape[1]), dtype=torch.int32, device=x.device)
+            for _ in range(2)]
+    out = {"k1": [0, 0.0, 0.0], "k2": [0, 0.0, 0.0]}
+    src = x
+    for i, step in enumerate(steps):
+        dst = bufs[i % 2]
+        ms, _ = profiled_ms(
+            torch, lambda s=step, a=src, b=dst: nc.launch(F, s, a, b, inverse),
+            5, "ntt_kernel<")
+        b = ntt_bound(card, step.kernel, step.log_a, step.log_b, x.shape[1],
+                      step.zero_top, step.batch)
+        acc = out[step.kernel]
+        acc[0] += 1
+        acc[1] += ms
+        acc[2] += b[0]
+        src = dst
+    return out
+
+
+def phase_kernels_m21(torch, np, card, records):
+    """K1/K2 at the M21 paths' shapes (M21_NTT_CASES) against the plain
+    version, bit for bit, with the launches of `ntt_cuda.plan`, each
+    launch's time and bound (`*_<path>` keys of the ntt records)."""
+    from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.ops import ntt_cuda as nc
+
+    for log_n, w, inverse, zero_top, path in M21_NTT_CASES:
+        rows = (1 << log_n) >> 1 if zero_top else 1 << log_n
+        x = _rand_words_device(torch, log_n + w, (rows, w), F.P)
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        got = nc.dif_fused(F, x, log_n, inverse, zero_top)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        ran = {k: kernels.LAUNCHES[k] - before[k]
+               for k in ("ntt_k1", "ntt_k2")}
+        planned = {f"ntt_{k}": sum(s.kernel == k for s in nc.plan(
+            log_n, zero_top)) for k in ("k1", "k2")}
+        if ran != planned:
+            raise AssertionError(f"ntt {log_n} {w}: launched {ran}, "
+                                 f"planned {planned}")
+        want, plain = once_ms(torch, lambda: nc.dif_fused_plain(
+            F, x, log_n, inverse, zero_top))
+        err = compare(f"ntt {log_n} {w}", got, want)
+        del want, got
+        per = _plan_timed(torch, card, nc, F, x, log_n, inverse, zero_top)
+        rec = {"log_n": log_n, "w": w, "inverse": inverse,
+               "zero_top": zero_top, "path": path, "max_abs_err": err,
+               "k1_launches": ran["ntt_k1"], "k2_launches": ran["ntt_k2"],
+               "first_call_s": call_s, "plain_ms": plain}
+        for k in ("k1", "k2"):
+            n_l, ms, b = per[k]
+            sh = share(f"ntt_{k} {log_n} {w}", b, ms)
+            rec.update({f"{k}_ms": ms, f"{k}_bound_ms": b,
+                        f"{k}_share": sh})
+            records[f"ntt_{k}"].update({
+                f"max_abs_err_{path}": err, f"ms_{path}": ms,
+                f"plain_ms_{path}": plain, f"bound_ms_{path}": b,
+                f"share_{path}": sh, f"launches_plan_{path}": n_l,
+                f"shape_{path}": [log_n, w, "zero_top" if zero_top
+                                  else ("inverse" if inverse else "forward")]})
+        emit({"phase": "kernels", "kernel": "ntt_m21", **rec})
+        del x
+
+
+def _logged_grinds(make):
+    """(a challenger factory like `make` whose grinds of more than 0 bits
+    append their witnesses to a list, the list): launch_bounds reads the
+    witnesses in launch order."""
+    found = []
+
+    def challenger():
+        ch = make()
+        real = ch.grind
+
+        def grind(bits, **kw):
+            w = real(bits, **kw)
+            if bits:
+                found.append(w)
+            return w
+
+        ch.grind = grind
+        return ch
+
+    return challenger, found
+
+
+def _m21_launches(kernels, phase):
+    """The launches since the last reset: K1, K2 and the Poseidon2 grind
+    each at least once, nothing else."""
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    missing = [k for k in M21_PATH if not launched.get(k)]
+    stray = sorted(set(launched) - set(M21_PATH))
+    if missing or stray:
+        raise AssertionError(f"{phase}: launches {launched} (missing "
+                             f"{missing}, stray {stray})")
+    return launched
+
+
+def _bump(e, P):
+    return tuple((c + 1) % P for c in e)
+
+
+def _pcs_probes(name, P):
+    """The probes of a pcs_comparison proof: a changed opened value and a
+    changed query row, each as (change, the class and message the
+    verifier must raise). The classes are the reference's for the same
+    tampers (tests/test_torch_stir.py, tests/test_torch_whir.py); the
+    messages are those of this schedule (2^18 x 16, 20 PoW bits)."""
+    def stir_value(run):
+        run["value"] = [_bump(run["value"][0], P)] + list(run["value"][1:])
+
+    def stir_row(run):
+        rows_pq = run["proof"][0].input_openings[0][0]
+        rows_pq[0][0][0] = (int(rows_pq[0][0][0]) + 1) % P
+
+    def whir_value(run):
+        run["value"] = _bump(run["value"], P)
+
+    def whir_row(run):
+        g = run["proof"].rounds[0].query_values
+        first = g[0][0]
+        g[0] = [((first[0] + 1) % P,) + tuple(first[1:])] + list(g[0][1:])
+
+    if name == "stir":
+        return {"opened_value": (stir_value, ("InvalidPowWitness",
+                                              "round 0 folding PoW")),
+                "query_row": (stir_row, ("StirError",
+                                         "input opening rejected"))}
+    return {"opened_value": (whir_value, ("WhirError",
+                                          "SumcheckClaimMismatch")),
+            "query_row": (whir_row, ("WhirError", "MmcsError"))}
+
+
+def run_pcs_cli(torch):
+    """The CLI's pcs-comparison at full size in its own process: exit 0,
+    the header, the FRI, STIR and WHIR lines and WHIR's soundness line.
+    Returns each scheme's numbers from its line."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the child process needs the card's memory
+    cmd = [sys.executable, "-m", "plonky3_tpu_torch.cli", *PCS_CLI_ARGS]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                         cwd=Path(__file__).resolve().parent)
+    secs = time.perf_counter() - t0
+    lines = run.stdout.splitlines()
+    if run.returncode != 0:
+        raise AssertionError(f"the CLI exited {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    got = {}
+    for ln in lines:
+        m = re.match(r"  (fri|stir|whir) +commit\+open +([\d.]+) ms +verify "
+                     r"+([\d.]+) ms +proof (\d+) bytes$", ln)
+        if m:
+            got[m[1]] = {"prove_ms": float(m[2]), "verify_ms": float(m[3]),
+                         "proof_bytes": int(m[4])}
+    if (lines[:1] != ["pcs comparison: 2^18 x 16 koala-bear matrix, 1 "
+                      "opening point"] or sorted(got) != ["fri", "stir",
+                                                          "whir"]
+            or not any(ln.lstrip().startswith("whir soundness (johnson, "
+                                              "target 100b)")
+                       for ln in lines)):
+        raise AssertionError(f"the CLI's report lacks a line: {lines}")
+    emit({"phase": "pcs_comparison_cli", "argv": cmd[1:], "rc": 0,
+          "seconds": secs, "schemes": got, "stdout": lines})
+    return got
+
+
+def phase_pcs_comparison(torch, np, kernels, card):
+    """The CLI's pcs-comparison at 2^18 x 16 in its own process, then STIR
+    and WHIR in this process on the same matrix and point (cli.pcs_job):
+    a cold prove with per-launch events and spans, a warm one equal to it,
+    the port's verifier accepting it and rejecting the two probes, and a
+    profiled prove for the device's idle share. Returns, per scheme, the
+    launches and per-proof bounds."""
+    from plonky3_tpu_torch import cli
+
+    run_pcs_cli(torch)
+    job = cli.pcs_job(**PCS_ARGS, device="cuda")
+    job.challenger, found = _logged_grinds(job.challenger)
+    out = {}
+    for name in ("stir", "whir"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        kernels.reset_launches()
+        found.clear()
+        spans = {}
+
+        def run(spans=None):
+            t0 = time.perf_counter()
+            got = cli.prove_pcs(job, name, spans=spans)
+            torch.cuda.synchronize()
+            return got, time.perf_counter() - t0
+
+        (cold, cold_s), calls = recorded(torch, kernels,
+                                         lambda: run(spans))
+        launches = _m21_launches(kernels, f"pcs_{name}")
+        peak = torch.cuda.max_memory_allocated() - held
+        cold_found = list(found)
+        per_proof = launch_bounds(card, calls, cold_found)
+        warm_spans = {}
+        warm, warm_s = run(warm_spans)
+        if as_plain((warm["commit"], warm["value"], warm["proof"])) != (
+                as_plain((cold["commit"], cold["value"], cold["proof"]))):
+            raise AssertionError(f"pcs {name}: the warm proof differs")
+        t0 = time.perf_counter()
+        cli.verify_pcs(job, name, cold)
+        verify_s = time.perf_counter() - t0
+        tamper = {}
+        for probe, (change, expected) in _pcs_probes(name,
+                                                     job.F.P).items():
+            bad = copy.deepcopy(cold)
+            change(bad)
+            try:
+                cli.verify_pcs(job, name, bad)
+            except Exception as e:  # noqa: BLE001 (its class is checked)
+                if (type(e).__name__, str(e)) != expected:
+                    raise AssertionError(
+                        f"pcs {name}: the probe {probe} raised "
+                        f"{type(e).__name__}({e}), not {expected}") from e
+                tamper[probe] = {"raised": type(e).__name__,
+                                 "message": str(e)}
+            else:
+                raise AssertionError(f"pcs {name}: the probe {probe} was "
+                                     f"accepted")
+        prof = _profile(torch, lambda: cli.prove_pcs(job, name))
+        rows = device_records(prof)
+        busy_s = sum(r[0] for r in rows) / 1e6
+        device_ms = collections.Counter()
+        for us, k, c in rows:
+            for kname, tags in PROFILE_NAMES.items():
+                if kname in M21_PATH and all(t in k for t in tags):
+                    device_ms[kname] += us / 1e3
+        emit({"phase": f"pcs_{name}", "rows": 1 << job.log_n,
+              "width": job.width, "cold_prove_s": cold_s,
+              "warm_prove_s": warm_s, "verify_s": verify_s,
+              "peak_mem_bytes": peak, "launches": launches,
+              "grind_witnesses": cold_found,
+              "proof_bytes": cli.proof_bytes(cold["proof"]),
+              "spans": spans, "warm_spans": warm_spans, "tamper": tamper,
+              "device_busy_s": busy_s,
+              "device_idle_share": 1 - busy_s / warm_s,
+              "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": c}
+                      for us, k, c in rows[:10]],
+              "device_ms": dict(device_ms)})
+        emit({"phase": f"pcs_{name}_per_proof", "kernels": per_proof})
+        out[name] = dict(launches=launches, per_proof=per_proof,
+                         device_ms=dict(device_ms))
+        del cold, warm
+    return out
+
+
+def _ms_setup(F, E, n_vars, small=False):
+    """The multi_stark phase's WHIR PCS: the reference tests' Poseidon2
+    MMCS and WhirConfig.from_security(100, johnson, n_vars, 4 x 31 field
+    bits, blowup 4, k 2, 16 PoW bits); `small`: the m21_small schedule
+    (8 queries, 1 OOD sample, 8 PoW bits a round, as
+    tests/test_torch_cuda.py), whose CPU half grinds in seconds."""
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+    from plonky3_tpu_torch.hashes.sponge import (PaddingFreeSponge,
+                                                 TruncatedPermutation)
+    from plonky3_tpu_torch.merkle.extension_mmcs import ExtensionMmcs
+    from plonky3_tpu_torch.merkle.mmcs import MerkleTreeMmcs
+    from plonky3_tpu_torch.multilinear.whir import WhirConfig, WhirPcs
+
+    mmcs = MerkleTreeMmcs(
+        sponge=PaddingFreeSponge(default_poseidon2(F, 24), rate=16, out=8),
+        compressor=TruncatedPermutation(default_poseidon2(F, 16), chunk=8))
+    if small:
+        cfg = WhirConfig(log_blowup=2, folding_factor=2,
+                         final_vars=2 + n_vars % 2, num_queries=8,
+                         ood_samples=1, pow_bits=8)
+    else:
+        cfg = WhirConfig.from_security(100, "johnson", n_vars,
+                                       field_bits=4 * 31, log_blowup=2,
+                                       folding_factor=2, max_pow_bits=16)
+    return WhirPcs(F=F, E=E, config=cfg, mmcs=mmcs,
+                   fri_mmcs=ExtensionMmcs(inner=mmcs, D=E.D))
+
+
+def phase_multi_stark(torch, np, kernels, card):
+    """FibonacciAir at 2^MS_LOG_N rows through prove_multi_stark over
+    WHIR (the stacked MLE 2^(MS_LOG_N+1) entries): one prove with
+    per-launch events and spans, its launches and peak memory,
+    verify_multi_stark, and a changed public value rejected. Returns the
+    launches and per-proof bounds."""
+    from plonky3_tpu_torch.challenger.duplex import DuplexChallenger
+    from plonky3_tpu_torch.cli import proof_bytes
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+    from plonky3_tpu_torch.models.fibonacci import (FibonacciAir,
+                                                    generate_fibonacci_trace)
+    from plonky3_tpu_torch.multilinear import multi_stark as ms
+
+    t0 = time.perf_counter()
+    trace, publics = generate_fibonacci_trace(F, MS_LOG_N, device="cuda")
+    gen_s = time.perf_counter() - t0
+    air = FibonacciAir(F)
+    pcs = _ms_setup(F, E, MS_LOG_N + 1)
+    pk, vk = ms.setup(pcs, air)
+    challenger, found = _logged_grinds(lambda: DuplexChallenger(
+        default_poseidon2(F, 24), device="cuda", rate=16))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    spans = {}
+
+    def run():
+        t0 = time.perf_counter()
+        proof = ms.prove_multi_stark(pcs, air, trace, publics, challenger(),
+                                     pk=pk, spans=spans)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t0
+
+    (proof, prove_s), calls = recorded(torch, kernels, run)
+    launches = _m21_launches(kernels, "multi_stark")
+    peak = torch.cuda.max_memory_allocated() - held
+    per_proof = launch_bounds(card, calls, list(found))
+    t0 = time.perf_counter()
+    ms.verify_multi_stark(pcs, air, proof, publics,
+                          DuplexChallenger(default_poseidon2(F, 24),
+                                           rate=16), vk=vk)
+    verify_s = time.perf_counter() - t0
+    bad = list(publics)
+    bad[2] = (bad[2] + 1) % F.P
+    # the reference's class and message for this tamper
+    # (tests/test_torch_multilinear.py::
+    # test_changed_public_value_rejected_by_both, the same at 2^5 rows)
+    expected = ("ValueError", "SumcheckRoundMismatch round 1")
+    try:
+        ms.verify_multi_stark(pcs, air, proof, bad,
+                              DuplexChallenger(default_poseidon2(F, 24),
+                                               rate=16))
+    except Exception as e:  # noqa: BLE001 (its class is checked)
+        if (type(e).__name__, str(e)) != expected:
+            raise AssertionError(f"multi_stark: a changed public value "
+                                 f"raised {type(e).__name__}({e}), not "
+                                 f"{expected}") from e
+        tamper = {"public_value": {"raised": type(e).__name__,
+                                   "message": str(e)}}
+    else:
+        raise AssertionError("multi_stark: a changed public value was "
+                             "accepted")
+    cfg = pcs.config
+    emit({"phase": "multi_stark", "rows": 1 << MS_LOG_N, "width": air.width,
+          "mle_vars": MS_LOG_N + 1, "trace_gen_s": gen_s,
+          "cold_events_prove_s": prove_s, "peak_mem_bytes": peak,
+          "launches": launches, "verify_s": verify_s, "tamper": tamper,
+          "whir_rounds": cfg.num_rounds(MS_LOG_N + 1),
+          "whir_queries": list(cfg.round_queries),
+          "whir_pow_bits": list(cfg.round_pow_bits),
+          "proof_bytes": proof_bytes(proof), "spans": spans})
+    emit({"phase": "multi_stark_per_proof", "kernels": per_proof})
+    return dict(launches=launches, per_proof=per_proof, device_ms={})
+
+
+M21_SMALL = ("stir", "whir", "multi_stark")
+
+
+def _m21_small_proof(np, torch, dev, name):
+    """A small STIR PCS (2^8 x 8), WHIR (n_vars 10) or multilinear
+    FibonacciAir (2^8 rows) proof on `dev` from seeded inputs, with the
+    verifier's inputs: (proof, verify())."""
+    from plonky3_tpu_torch.challenger.duplex import DuplexChallenger
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+    from plonky3_tpu_torch.models.fibonacci import (FibonacciAir,
+                                                    generate_fibonacci_trace)
+    from plonky3_tpu_torch.multilinear import multi_stark as ms
+    from plonky3_tpu_torch.stir import StirParameters
+    from plonky3_tpu_torch.stir.pcs import TwoAdicStirPcs
+
+    def ch():
+        return DuplexChallenger(default_poseidon2(F, 24), device=dev,
+                                rate=16)
+
+    rng = np.random.default_rng(21)
+    if name == "stir":
+        whir = _ms_setup(F, E, 10, small=True)  # for its MMCS
+        pcs = TwoAdicStirPcs(F=F, E=E, params=StirParameters(
+            log_blowup=2, log_folding_factor=2, security_level=60,
+            max_pow_bits=12), mmcs=whir.mmcs, stir_mmcs=whir.fri_mmcs)
+        evals = torch.from_numpy(F.rand_np(rng, (256, 8)).astype(
+            np.int64)).to(dev)
+        z = E.rand_h(rng)
+        domain = pcs.natural_domain_for_degree(256)
+        data = pcs.commit([(domain, evals)])
+        c = ch()
+        c.observe_many(data.root_std)
+        opened, proof = pcs.open([(data, [[z]])], c)
+
+        def verify():
+            v = ch()
+            v.observe_many(data.root_std)
+            pcs.verify([(data.root_std, [(domain, [(z, opened[0][0][0])])])],
+                       proof, v)
+
+        return (data.root_std, opened, proof), verify
+    if name == "whir":
+        pcs = _ms_setup(F, E, 10, small=True)
+        evals = torch.from_numpy(F.rand_np(rng, (1 << 10,), monty=False)
+                                 .astype(np.int64)).to(dev)
+        point = [E.rand_h(rng) for _ in range(10)]
+        commit, data = pcs.commit(evals)
+        c = ch()
+        c.observe_digest(commit)
+        value, proof = pcs.open(data, point, c)
+
+        def verify():
+            v = ch()
+            v.observe_digest(commit)
+            pcs.verify(commit, 10, point, value, proof, v)
+
+        return (commit, value, proof), verify
+    pcs = _ms_setup(F, E, 9, small=True)
+    trace, publics = generate_fibonacci_trace(F, 8, device=dev)
+    air = FibonacciAir(F)
+    proof = ms.prove_multi_stark(pcs, air, trace, publics, ch())
+    return proof, lambda: ms.verify_multi_stark(pcs, air, proof, publics,
+                                                ch())
+
+
+def side_m21_small(np, torch, dev, name):
+    """The small M21 proof `name` on `dev`; on the CPU it is verified
+    (VERIFY_ONCE)."""
+    t0 = time.perf_counter()
+    proof, verify = _m21_small_proof(np, torch, dev, name)
+    sync(torch, dev)
+    secs = {f"{name}_{dev}_prove_s": time.perf_counter() - t0}
+    if dev == "cpu":
+        t0 = time.perf_counter()
+        verify()
+        secs[f"{name}_verify_s"] = time.perf_counter() - t0
+    return {"plain": as_plain(proof), "secs": secs}
+
+
+def phase_m21_small(torch, np):
+    """STIR at 2^8 x 8, WHIR at n_vars 10 and the multilinear FibonacciAir
+    at 2^8 rows: each CUDA proof equals the CPU's (plain versions, in a
+    CPU worker, where each is verified once)."""
+    from plonky3_tpu_torch import kernels
+
+    secs, launched = {}, {}
+    for name in M21_SMALL:
+        kernels.reset_launches()
+        cuda = side_m21_small(np, torch, "cuda", name)
+        launched[name] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        cpu, cpu_secs, _ = cpu_side("side_m21_small", name)
+        secs.update(cuda["secs"], **cpu_secs)
+        if cuda["plain"] != cpu:
+            raise AssertionError(f"the small {name} proofs differ")
+        if not launched[name].get("ntt_k1"):
+            raise AssertionError(f"the small {name} proof launched no K1")
+    emit({"phase": "m21_small", "equal": list(M21_SMALL),
+          "launches": launched, "secs": secs})
+
+
 def host_cpu() -> str:
     """The first CPU's model name with its vendor, family, model and
     clock from /proc/cpuinfo (where the name reads "unknown", family
@@ -4319,8 +4844,11 @@ PROFILE_NAMES = {"ntt_k1": ("ntt_kernel<", "true>"),
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
-        argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run after the card and "
+                         "kernels phases (default: every phase)")
+    args = ap.parse_args(argv)
     import numpy as np
     import torch
 
@@ -4329,9 +4857,20 @@ def main(argv=None) -> int:
         return 1
     from plonky3_tpu_torch import kernels
 
-    seconds = {}
+    selected = None
+    if args.phases:
+        selected = {"card", "kernels"} | set(args.phases.split(","))
+    seconds, seen = {}, set()
 
     def timed(name, fn, *args):
+        """Run the phase `name`, or return None when the filter leaves it
+        out; a phase that reads a left-out one's result cannot run."""
+        seen.add(name)
+        if selected is not None and name not in selected:
+            return None
+        if any(a is None for a in args):
+            raise SystemExit(f"chip_smoke: phase {name} reads the result "
+                             f"of a phase the filter left out")
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
@@ -4339,38 +4878,61 @@ def main(argv=None) -> int:
 
     card = timed("card", phase_card, torch, kernels)
     try:
-        start_cpu_jobs()
-        return _run_phases(torch, np, kernels, card, seconds, timed)
+        start_cpu_jobs(selected)
+        records = _run_phases(torch, np, kernels, card, timed)
     finally:
         stop_cpu_jobs()
+    unknown = (selected or set()) - seen
+    if unknown:
+        print(f"chip_smoke: unknown phases {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
+    emit({"phase": "profile_checks", "short": PROFILE_SHORT})
+    emit({"phase": "phase_seconds", "seconds": seconds})
+    emit({"kernels": [records[k] for k in sorted(records)]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
 
 
 # The CPU halves of the CUDA == CPU checks, in the order the phases read
-# them: (side function, its arguments after the device)
-CPU_JOBS = (("side_gl_sponge", ()),
-            ("side_small", ("pow8",)), ("side_small", ("pow0",)),
-            ("side_keccak_air_small", ("fibonacci",)),
-            ("side_keccak_air_small", ("keccak",)),
-            ("side_pair", ("blake3",)), ("side_pair", ("PeriodicAir",)),
-            ("side_pair", ("NoNextRowAir",)),
-            ("side_pair", ("babybear_keccak-f",)),
-            ("side_pair", ("babybear_poseidon2",)),
-            ("side_pair", ("sha256_keccak",)),
-            ("side_pair", ("sha256_poseidon2",)),
-            ("side_pair", ("poseidon1_keccak",)),
-            ("side_pair", ("poseidon1_poseidon2",)),
-            ("side_pair", ("joined",)),
-            ("side_zk_small", ("fibonacci",)), ("side_zk_small", ("keccak",)),
-            ("side_preprocessed_small", ()), ("side_lookup_small", ()),
-            ("side_batch_small", ("keccak",)),
-            ("side_batch_small", ("poseidon2",)), ("side_serde_small", ()),
-            ("side_circle_small", ("fibonacci",)),
-            ("side_circle_small", ("keccak",)),
-            ("side_gl_small", ("fibonacci",)), ("side_gl_small", ("monolith",)))
+# them: (the phase that reads it, side function, its arguments after the
+# device)
+CPU_JOBS = (("kernels", "side_gl_sponge", ()),
+            ("small", "side_small", ("pow8",)),
+            ("small", "side_small", ("pow0",)),
+            ("keccak_air_small", "side_keccak_air_small", ("fibonacci",)),
+            ("keccak_air_small", "side_keccak_air_small", ("keccak",)),
+            ("blake3_air_small", "side_pair", ("blake3",)),
+            ("periodic", "side_pair", ("PeriodicAir",)),
+            ("periodic", "side_pair", ("NoNextRowAir",)),
+            ("babybear_small", "side_pair", ("babybear_keccak-f",)),
+            ("babybear_small", "side_pair", ("babybear_poseidon2",)),
+            ("sha256_air_small", "side_pair", ("sha256_keccak",)),
+            ("sha256_air_small", "side_pair", ("sha256_poseidon2",)),
+            ("poseidon1_small", "side_pair", ("poseidon1_keccak",)),
+            ("poseidon1_small", "side_pair", ("poseidon1_poseidon2",)),
+            ("m15_small", "side_pair", ("joined",)),
+            ("zk_small", "side_zk_small", ("fibonacci",)),
+            ("zk_small", "side_zk_small", ("keccak",)),
+            ("preprocessed", "side_preprocessed_small", ()),
+            ("lookup", "side_lookup_small", ()),
+            ("batch", "side_batch_small", ("keccak",)),
+            ("batch", "side_batch_small", ("poseidon2",)),
+            ("serde", "side_serde_small", ()),
+            ("circle_small", "side_circle_small", ("fibonacci",)),
+            ("circle_small", "side_circle_small", ("keccak",)),
+            ("gl_small", "side_gl_small", ("fibonacci",)),
+            ("gl_small", "side_gl_small", ("monolith",)),
+            ("m21_small", "side_m21_small", ("stir",)),
+            ("m21_small", "side_m21_small", ("whir",)),
+            ("m21_small", "side_m21_small", ("multi_stark",)))
 
 
-def _run_phases(torch, np, kernels, card, seconds, timed):
-    """Every phase after the card's, and the kernels line."""
+def _run_phases(torch, np, kernels, card, timed):
+    """Every phase after the card's; returns the kernels line's records.
+    A phase that the filter left out (None) leaves its launches None."""
     records = timed("kernels", phase_kernels, torch, np, card)
     mixed = timed("mixed", phase_mixed, torch, np, kernels)
     timed("small", phase_small, torch, np)
@@ -4415,6 +4977,10 @@ def _run_phases(torch, np, kernels, card, seconds, timed):
     glf = timed("gl_fibonacci", phase_gl_fibonacci, torch, np, kernels, card)
     glm = timed("gl_monolith_air", phase_gl_monolith_air, torch, np,
                 kernels, card)
+    timed("m21_small", phase_m21_small, torch, np)
+    pcs = timed("pcs_comparison", phase_pcs_comparison, torch, np, kernels,
+                card)
+    mst = timed("multi_stark", phase_multi_stark, torch, np, kernels, card)
     # launches, proof_* : the main path (the fast prover) of the kernel's
     # config, keccak or (the duplex transcript's kernels) Poseidon2, and
     # for BabyBear's duplex kernels (<21, 7>, `*_babybear`) the BabyBear
@@ -4437,35 +5003,33 @@ def _run_phases(torch, np, kernels, card, seconds, timed):
     # torch.profiler, where it recorded every launch. Every per-proof
     # share goes through share().
     for name, rec in records.items():
+        on_fast = not (name.endswith("_babybear") or name in GL_PATH
+                       or name.startswith("poseidon2"))
         if name.endswith("_babybear"):
             main = bbp2
         elif name in GL_PATH:
             main = glm
         else:
-            main = p2 if name.startswith("poseidon2") else fast
+            main = fast if on_fast else p2
         paths = [("", main)]
         if name in GL_PATH:
             paths.append(("_gl_fibonacci", glf))
-            rec["launches_gl_fibonacci"] = glf["launches"][name]
-        if main is fast:
+        if on_fast:
             paths.append(("_prove", full))
-            rec["launches_prove"] = full["launches"][name]
-            rec["launches_mixed_commit"] = mixed[name]
-        if name in POSEIDON2_PATH and main is fast:
-            paths.append(("_poseidon2", p2))
-            rec["launches_poseidon2"] = p2["launches"][name]
-            paths.append(("_babybear_poseidon2", bbp2))
-            rec["launches_babybear_poseidon2"] = bbp2["launches"][name]
+            rec["launches_mixed_commit"] = (None if mixed is None
+                                            else mixed[name])
+        if name in POSEIDON2_PATH and on_fast:
+            paths += [("_poseidon2", p2), ("_babybear_poseidon2", bbp2)]
         if name in POSEIDON2_PATH:
             paths.append(("_poseidon1_poseidon2", p1p2))
-            rec["launches_poseidon1_poseidon2"] = p1p2["launches"][name]
         if name in FAST_PATH:
-            for key, got in (("_keccak_air", kair), ("_blake3_air", b3),
-                             ("_babybear", bb), ("_sha256_air", sha),
-                             ("_poseidon1", p1)):
-                paths.append((key, got))
-                rec[f"launches{key}"] = got["launches"][name]
-        for key, got, path in (("_zk_air", zk, ZK_PATH),
+            paths += [("_keccak_air", kair), ("_blake3_air", b3),
+                      ("_babybear", bb), ("_sha256_air", sha),
+                      ("_poseidon1", p1)]
+        for key, got, path in (("_pcs_stir", pcs and pcs["stir"], M21_PATH),
+                               ("_pcs_whir", pcs and pcs["whir"], M21_PATH),
+                               ("_multi_stark", mst, M21_PATH),
+                               ("_zk_air", zk, ZK_PATH),
                                ("_batch", bt, BATCH_PATH),
                                ("_batch_ref", bref, BATCH_REF_PATH),
                                ("_interaction", inter, INTERACTION_PATH),
@@ -4474,10 +5038,10 @@ def _run_phases(torch, np, kernels, card, seconds, timed):
                                ("_monolith_air", mono, KECCAK_KERNELS[:3])):
             if name in path:
                 paths.append((key, got))
-                rec[f"launches{key}"] = got["launches"][name]
-        rec["launches"] = main["launches"][name]
         for key, got in paths:
-            if name not in got["per_proof"]:
+            rec[f"launches{key}"] = (None if got is None
+                                     else got["launches"][name])
+            if got is None or name not in got["per_proof"]:
                 continue
             bound = got["per_proof"][name]["bound_ms"]
             rec[f"proof_bound_ms{key}"] = bound
@@ -4487,14 +5051,7 @@ def _run_phases(torch, np, kernels, card, seconds, timed):
                     rec[f"proof{what}_ms{key}"] = ms
                     rec[f"proof{what}_share{key}"] = share(
                         f"{name}{key} per proof{what}", bound, ms)
-    emit({"phase": "profile_checks", "short": PROFILE_SHORT})
-    emit({"phase": "phase_seconds", "seconds": seconds})
-    emit({"kernels": [records[k] for k in sorted(records)]})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
-
+    return records
 
 if __name__ == "__main__":
     sys.exit(main())

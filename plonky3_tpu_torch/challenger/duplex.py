@@ -13,6 +13,7 @@ duplex_challenger.rs:33), the transcript of the Poseidon2 config
                 state[..RATE], popped from the end
   sample:       duplex if inputs are queued or the outputs are spent; pop
   sample_bits:  the low `bits` bits of a sample (:278-284)
+  sample_uniform_bits: the unbiased sampler with rejection (:378)
   grind(bits):  the smallest witness w with sample_bits(bits) == 0 after
                 observe(w) (grinding_challenger.rs:33), searched by
                 `poseidon2_grind` on the challenger's device
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from ..hashes.poseidon2_cuda import RATE, WIDTH, poseidon2_grind
+from .hash_challenger import sample_uniform_bits
 
 
 class DuplexChallenger:
@@ -103,6 +105,9 @@ class DuplexChallenger:
         if (1 << bits) >= self.perm.F.P:
             raise ValueError(f"{bits} bits exceed the field")
         return self.sample() & ((1 << bits) - 1)
+
+    def sample_uniform_bits(self, bits: int) -> int:
+        return sample_uniform_bits(self, self.perm.F, bits)
 
     # -- proof of work --------------------------------------------------------
     def check_witness(self, bits: int, witness: int) -> bool:

@@ -22,8 +22,17 @@ two-adic PCS only, so a circle run proves with `prove()` and says so.
 `poseidon-2-permutations` over Mersenne-31 fails as the reference's does:
 there are no Poseidon2 constants for it.
 
-Not ported yet: the `pcs-comparison` command (FRI against STIR and WHIR),
-which raises NotImplementedError.
+`pcs-comparison` commits one random matrix with FRI, STIR and WHIR (the
+last as one stacked MLE), opens it at one point and verifies, and prints
+each scheme's commit+open and verify milliseconds and proof bytes, then
+WHIR's soundness line (the reference's arguments and lines,
+plonky3_tpu/cli.py:213-332):
+
+    python -m plonky3_tpu_torch.cli pcs-comparison --log-trace-length 18 \
+        --width 16 --fri benchmark --security-level 100 --max-pow-bits 20
+
+(At 2^18 rows with 12 or 16 PoW bits STIR's schedule, the reference's,
+refuses the degree: `stir/config.py` raises where the reference asserts.)
 """
 
 from __future__ import annotations
@@ -244,23 +253,193 @@ def run(job: Job, prover="host", repeat=1, spans=None):
 
 
 def cmd_prove(args):
-    from . import default_device
-
-    try:
-        dev = default_device(args.device)
-    except RuntimeError:
-        raise SystemExit("plonky3_tpu_torch.cli: no CUDA device is "
-                         "available; pass --device cpu to run the kernels' "
-                         "plain versions on the CPU") from None
+    dev = _device_or_exit(args.device)
     spans = Spans(dev)
     job = build(args.field, args.objective, args.log_trace_length,
                 args.log_vector_len, args.fri, args.merkle_hash, dev, spans)
     return run(job, args.prover, args.repeat, spans)
 
 
+def _device_or_exit(name):
+    from . import default_device
+
+    try:
+        return default_device(name)
+    except RuntimeError:
+        raise SystemExit("plonky3_tpu_torch.cli: no CUDA device is "
+                         "available; pass --device cpu to run the kernels' "
+                         "plain versions on the CPU") from None
+
+
+def proof_bytes(proof):
+    """Wire-size estimate: 4 bytes a base element over any proof tree."""
+    if isinstance(proof, (list, tuple)):
+        return sum(proof_bytes(v) for v in proof)
+    if isinstance(proof, dict):
+        return sum(proof_bytes(v) for v in proof.values())
+    if hasattr(proof, "__dict__"):
+        return proof_bytes(vars(proof))
+    if isinstance(proof, (int, np.integer)):
+        return 4
+    return 0
+
+
+@dataclass
+class PcsJob:
+    """What `pcs_job` makes: one random matrix, its opening point and the
+    three PCSs of a `pcs-comparison` run."""
+
+    F: object
+    E: object
+    log_n: int
+    width: int
+    evals: object  # (2^log_n, width) Montgomery tensor on the device
+    z: tuple  # the univariate opening point
+    n_vars: int  # the stacked MLE's variables
+    stacked: object  # (2^n_vars,) standard-form tensor: the columns, padded
+    point: list  # the multilinear opening point
+    pcs: dict  # "fri", "stir", "whir"
+    challenger: object  # () -> a fresh DuplexChallenger(perm24, rate 16)
+
+
+def pcs_job(field="koala-bear", log_trace_length=10, width=8,
+            fri="testing", log_blowup=2, log_folding_factor=2,
+            security_level=60, max_pow_bits=12, device=None) -> PcsJob:
+    """The PCSs, matrix and points of a `pcs-comparison` run, on `device`
+    (default cuda), the inputs from np.random.default_rng(3) as the
+    reference draws them (plonky3_tpu/cli.py:265-325). WHIR's schedule
+    comes from a security assumption (whir.rs:220)."""
+    import torch
+
+    from . import default_device
+    from .challenger.duplex import DuplexChallenger
+    from .fri.two_adic_pcs import TwoAdicFriPcs
+    from .hashes.poseidon2 import default_poseidon2
+    from .hashes.sponge import PaddingFreeSponge, TruncatedPermutation
+    from .merkle.extension_mmcs import ExtensionMmcs
+    from .merkle.mmcs import MerkleTreeMmcs
+    from .multilinear.whir import WhirConfig, WhirPcs
+    from .stir import StirParameters
+    from .stir.pcs import TwoAdicStirPcs
+
+    dev = default_device(device)
+    F, E = field_pair(field)
+    mmcs = MerkleTreeMmcs(
+        sponge=PaddingFreeSponge(default_poseidon2(F, 24), rate=16, out=8),
+        compressor=TruncatedPermutation(default_poseidon2(F, 16), chunk=8))
+    ext_mmcs = ExtensionMmcs(inner=mmcs, D=E.D)
+    log_wp = max((width - 1).bit_length(), 0)
+    n_vars = log_trace_length + log_wp
+    wcfg = WhirConfig.from_security(
+        security_level, "johnson", n_vars, field_bits=E.D * F.P.bit_length(),
+        log_blowup=log_blowup, folding_factor=2, max_pow_bits=max_pow_bits)
+    pcs = {
+        "fri": TwoAdicFriPcs(F=F, E=E, fri=fri_params(fri), mmcs=mmcs,
+                             fri_mmcs=ext_mmcs),
+        "stir": TwoAdicStirPcs(
+            F=F, E=E,
+            params=StirParameters(log_blowup=log_blowup,
+                                  log_folding_factor=log_folding_factor,
+                                  security_level=security_level,
+                                  max_pow_bits=max_pow_bits),
+            mmcs=mmcs, stir_mmcs=ext_mmcs),
+        "whir": WhirPcs(F=F, E=E, config=wcfg, mmcs=mmcs, fri_mmcs=ext_mmcs),
+    }
+    rng = np.random.default_rng(3)
+    evals = torch.from_numpy(F.rand_np(
+        rng, (1 << log_trace_length, width)).astype(np.int64)).to(dev)
+    z = E.rand_h(rng)
+    point = [E.rand_h(rng) for _ in range(n_vars)]
+    # WHIR's input: the columns one after another, zero-padded to 2^log_wp
+    # (built before the timed commit, as the reference builds it)
+    stacked = evals.new_zeros((1 << log_wp, 1 << log_trace_length))
+    stacked[:width] = F.from_monty_tensor(evals).T
+
+    def challenger():
+        return DuplexChallenger(default_poseidon2(F, 24), device=dev,
+                                rate=16)
+
+    return PcsJob(F, E, log_trace_length, width, evals, z, n_vars,
+                  stacked.reshape(-1), point, pcs, challenger)
+
+
+def prove_pcs(job: PcsJob, name: str, spans=None) -> dict:
+    """Commit and open `job`'s matrix with the PCS `name`; the
+    verifier's inputs and the proof, as a dict. spans: a dict of stage
+    seconds (STIR's and WHIR's opens fill it)."""
+    ch = job.challenger()
+    pcs = job.pcs[name]
+    if name == "whir":
+        commit, data = pcs.commit(job.stacked)
+        ch.observe_digest(commit)
+        value, proof = pcs.open(data, job.point, ch, spans=spans)
+        return dict(commit=commit, value=value, proof=proof)
+    domain = pcs.natural_domain_for_degree(1 << job.log_n)
+    data = pcs.commit([(domain, job.evals)])
+    ch.observe_many(data.root_std)
+    opened, proof = pcs.open([(data, [[job.z]])], ch, spans=spans)
+    return dict(commit=data.root_std, domain=domain,
+                value=opened[0][0][0], proof=proof)
+
+
+def verify_pcs(job: PcsJob, name: str, run: dict):
+    """Verify a `prove_pcs` result (its `value` and `proof`, which a
+    probe may have changed); raises the PCS's error."""
+    ch = job.challenger()
+    pcs = job.pcs[name]
+    if name == "whir":
+        ch.observe_digest(run["commit"])
+        pcs.verify(run["commit"], job.n_vars, job.point, run["value"],
+                   run["proof"], ch)
+        return
+    ch.observe_many(run["commit"])
+    pcs.verify([(run["commit"], [(run["domain"], [(job.z, run["value"])])])],
+               run["proof"], ch)
+
+
+def pcs_comparison(field="koala-bear", log_trace_length=10, width=8,
+                   fri="testing", log_blowup=2, log_folding_factor=2,
+                   security_level=60, max_pow_bits=12, device=None):
+    """FRI against STIR and WHIR on one matrix and one opening point (the
+    `examples/examples/pcs_comparison.rs` analog), on `device` (default
+    cuda). Prints the reference's lines and returns {scheme: (prove
+    seconds, verify seconds, proof bytes)}."""
+    import torch
+
+    job = pcs_job(field, log_trace_length, width, fri, log_blowup,
+                  log_folding_factor, security_level, max_pow_bits, device)
+    print(f"pcs comparison: 2^{log_trace_length} x {width} {field} matrix, "
+          f"1 opening point")
+    results = {}
+    for name in ("fri", "stir", "whir"):
+        if job.evals.device.type == "cuda":
+            torch.cuda.synchronize(job.evals.device)
+        t0 = time.perf_counter()
+        run = prove_pcs(job, name)
+        if job.evals.device.type == "cuda":
+            torch.cuda.synchronize(job.evals.device)
+        t_prove = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        verify_pcs(job, name, run)
+        t_verify = time.perf_counter() - t0
+        size = proof_bytes(run["proof"])
+        results[name] = (t_prove, t_verify, size)
+        print(f"  {name:<6s} commit+open {t_prove*1e3:9.1f} ms   "
+              f"verify {t_verify*1e3:8.1f} ms   proof {size} bytes")
+    wcfg = job.pcs["whir"].config
+    rep = wcfg.soundness_report(job.n_vars, job.E.D * job.F.P.bit_length())
+    print(f"         whir soundness (johnson, target {security_level}b): "
+          f"{rep.get('conjectured_bits')} bits  schedule "
+          f"queries={list(wcfg.round_queries)} "
+          f"pow={list(wcfg.round_pow_bits)}")
+    return results
+
+
 def cmd_pcs_comparison(args):
-    raise NotImplementedError("pcs-comparison compares FRI with STIR and "
-                              "WHIR, which are not ported yet (M21)")
+    dev = _device_or_exit(args.device)
+    return pcs_comparison(args.field, args.log_trace_length, args.width,
+                          args.fri, args.log_blowup, args.log_folding_factor,
+                          args.security_level, args.max_pow_bits, dev)
 
 
 def main(argv=None):
@@ -283,7 +462,20 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu (the kernels' plain "
                         "versions)")
-    sub.add_parser("pcs-comparison", help="not ported yet (M21)")
+    pc = sub.add_parser("pcs-comparison",
+                        help="FRI against STIR and WHIR on one matrix")
+    pc.add_argument("--field", default="koala-bear",
+                    choices=["koala-bear", "baby-bear"])
+    pc.add_argument("--log-trace-length", type=int, default=10)
+    pc.add_argument("--width", type=int, default=8)
+    pc.add_argument("--fri", default="testing", choices=FRIS)
+    pc.add_argument("--log-blowup", type=int, default=2)
+    pc.add_argument("--log-folding-factor", type=int, default=2)
+    pc.add_argument("--security-level", type=int, default=60)
+    pc.add_argument("--max-pow-bits", type=int, default=12)
+    pc.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu (the kernels' plain "
+                         "versions)")
     args = ap.parse_args(argv)
     if args.cmd == "prove":
         return cmd_prove(args)

@@ -115,6 +115,10 @@ class BinomialExtension:
         norm = self.mul_h(a, prod)
         return self.base_mul_h(self.base.inv_h(norm[0]), prod)
 
+    def rand_h(self, rng: np.random.Generator):
+        """A uniform element (the reference's draws from the same rng)."""
+        return tuple(int(x) for x in rng.integers(0, self.base.P, self.D))
+
     # ---- host <-> arrays ----------------------------------------------
     def to_monty_np(self, a) -> np.ndarray:
         """Host tuple (standard ints) -> (D,) uint32 Montgomery array."""

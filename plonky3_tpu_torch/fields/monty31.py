@@ -29,6 +29,9 @@ class Field31:
     only `P`, `R` (the form's one) and `mul`; a subclass defines those."""
 
     # ---- host scalar math (standard-form Python ints) -----------------
+    def sub_h(self, a: int, b: int) -> int:
+        return (a - b) % self.P
+
     def mul_h(self, a: int, b: int) -> int:
         return (a * b) % self.P
 

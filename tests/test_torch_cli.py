@@ -145,7 +145,7 @@ def test_prove_equals_reference_proof(capsys):
         capsys.readouterr().out.splitlines()
 
 
-def test_unported_field_and_command_raise():
+def test_unported_field_and_command_raise(capsys):
     # the default FRI folds by 8, which circle FRI refuses (the
     # reference asserts max_log_arity == 1), and Poseidon2 has no
     # Mersenne-31 constants
@@ -155,8 +155,19 @@ def test_unported_field_and_command_raise():
                        match="Poseidon2 over Mersenne31"):
         cli.main(["prove", "--field", "mersenne-31", "--fri", "testing",
                   "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="M21"):
-        cli.main(["pcs-comparison"])
+    # pcs-comparison runs: FRI, STIR and WHIR each prove, verify and
+    # print their line, then WHIR's soundness line
+    capsys.readouterr()
+    results = cli.main(["pcs-comparison", "--device", "cpu",
+                        "--log-trace-length", "6", "--width", "4"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == ("pcs comparison: 2^6 x 4 koala-bear matrix, "
+                        "1 opening point")
+    for line, name in zip(lines[1:4], ("fri", "stir", "whir")):
+        assert line.startswith(f"  {name:<6s} commit+open ")
+        assert line.endswith(f"proof {results[name][2]} bytes")
+    assert lines[4].lstrip().startswith("whir soundness (johnson, target "
+                                        "60b): ")
 
 
 def test_default_device_is_cuda():

@@ -847,3 +847,81 @@ def test_gl_proof_equals_cpu(cuda, name):
             verify(config, air, proof, publics)
         proofs.append(proof)
     assert proofs[0] == proofs[1]
+
+
+def _m21_proof(name, device):
+    """A small STIR PCS, WHIR or multilinear-STARK proof made on
+    `device` from seeded inputs (the sizes of chip_smoke.py's
+    m21_small)."""
+    from plonky3_tpu_torch.challenger.duplex import DuplexChallenger
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+    from plonky3_tpu_torch.hashes.sponge import (PaddingFreeSponge,
+                                                 TruncatedPermutation)
+    from plonky3_tpu_torch.merkle.extension_mmcs import ExtensionMmcs
+    from plonky3_tpu_torch.merkle.mmcs import MerkleTreeMmcs
+    from plonky3_tpu_torch.models.fibonacci import (FibonacciAir,
+                                                    generate_fibonacci_trace)
+    from plonky3_tpu_torch.multilinear.multi_stark import prove_multi_stark
+    from plonky3_tpu_torch.multilinear.whir import WhirConfig, WhirPcs
+    from plonky3_tpu_torch.stir import StirParameters
+    from plonky3_tpu_torch.stir.pcs import TwoAdicStirPcs
+
+    mmcs = MerkleTreeMmcs(
+        sponge=PaddingFreeSponge(default_poseidon2(F, 24), rate=16, out=8),
+        compressor=TruncatedPermutation(default_poseidon2(F, 16), chunk=8))
+    ext = ExtensionMmcs(inner=mmcs, D=E.D)
+
+    def ch():
+        return DuplexChallenger(default_poseidon2(F, 24), device=device,
+                                rate=16)
+
+    rng = np.random.default_rng(21)
+    if name == "stir":
+        pcs = TwoAdicStirPcs(F=F, E=E, params=StirParameters(
+            log_blowup=2, log_folding_factor=2, security_level=60,
+            max_pow_bits=12), mmcs=mmcs, stir_mmcs=ext)
+        evals = torch.from_numpy(F.rand_np(rng, (256, 8)).astype(
+            np.int64)).to(device)
+        z = E.rand_h(rng)
+        data = pcs.commit([(pcs.natural_domain_for_degree(256), evals)])
+        c = ch()
+        c.observe_many(data.root_std)
+        return data.root_std, pcs.open([(data, [[z]])], c)
+    # n_vars 10, or 9 for the 2^8 x 2 trace's stacked MLE
+    cfg = WhirConfig(log_blowup=2, folding_factor=2,
+                     final_vars=2 if name == "whir" else 3,
+                     num_queries=8, ood_samples=1, pow_bits=8)
+    pcs = WhirPcs(F=F, E=E, config=cfg, mmcs=mmcs, fri_mmcs=ext)
+    if name == "whir":
+        evals = torch.from_numpy(F.rand_np(rng, (1 << 10,), monty=False)
+                                 .astype(np.int64)).to(device)
+        point = [E.rand_h(rng) for _ in range(10)]
+        commit, data = pcs.commit(evals)
+        c = ch()
+        c.observe_digest(commit)
+        return commit, pcs.open(data, point, c)
+    trace, publics = generate_fibonacci_trace(F, 8, device=device)
+    return prove_multi_stark(pcs, FibonacciAir(F), trace, publics, ch())
+
+
+@pytest.mark.parametrize("name", ["stir", "whir", "multi_stark"])
+def test_m21_proof_equals_cpu(cuda, name):
+    """STIR, WHIR and the multilinear STARK on the card give the CPU's
+    proof (their transforms launch K1/K2, their grinds the Poseidon2
+    grind kernel)."""
+    import dataclasses
+
+    from plonky3_tpu_torch import kernels
+
+    def plain(x):
+        if dataclasses.is_dataclass(x):
+            return tuple((f.name, plain(getattr(x, f.name)))
+                         for f in dataclasses.fields(x))
+        if isinstance(x, (list, tuple)):
+            return tuple(plain(v) for v in x)
+        return int(x) if isinstance(x, np.integer) else x
+
+    before = kernels.LAUNCHES["ntt_k1"]
+    got = _m21_proof(name, cuda)
+    assert kernels.LAUNCHES["ntt_k1"] > before
+    assert plain(got) == plain(_m21_proof(name, "cpu"))

@@ -117,6 +117,9 @@ def test_import_pulls_in_no_jax_or_reference():
         "import plonky3_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import plonky3_tpu_torch.stir.pcs\n"
+        "import plonky3_tpu_torch.multilinear.multi_stark\n"
+        "import plonky3_tpu_torch.challenger.schema\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'plonky3_tpu', 'triton')]\n"

@@ -266,14 +266,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 def test_gl_modules_import_no_jax_triton_or_reference():
-    """Importing the Goldilocks prover, MonolithGoldilocksAir and the
-    MultiField32 transcript loads neither jax, nor plonky3_tpu, nor
-    triton (a fresh interpreter, read from sys.modules)."""
+    """Importing the Goldilocks prover, MonolithGoldilocksAir, the
+    MultiField32 transcript, the STIR PCS, the multilinear STARK and the
+    transcript schemas loads neither jax, nor plonky3_tpu, nor triton (a
+    fresh interpreter, read from sys.modules)."""
     code = (
         "import sys\n"
         "import plonky3_tpu_torch.gl.stark\n"
         "import plonky3_tpu_torch.models.monolith_gl_air\n"
         "import plonky3_tpu_torch.challenger.multi_field\n"
+        "import plonky3_tpu_torch.stir.pcs\n"
+        "import plonky3_tpu_torch.multilinear.multi_stark\n"
+        "import plonky3_tpu_torch.challenger.schema\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'plonky3_tpu', 'triton'))\n"
         "print(bad)\n")
