@@ -268,13 +268,52 @@ Phases, each printed as one JSON line:
            100, johnson, 21, blowup 4, k 2, 16 PoW bits)): one prove with
            spans and per-launch events, launches, peak memory,
            verify_multi_stark, a changed public value rejected.
+  m22_small  the zero-knowledge multilinear stack and the sharded paths
+           at small size: hiding WHIR (n_vars 6), the masked zerocheck
+           (FibonacciAir at 2^4 rows) and the sharded LDE (256 x 5) with
+           its keccak and Poseidon2 trees in a one-rank group, each on the
+           card equal to the CPU's (the CPU's proofs verified);
+  hiding_whir  HidingWhirPcs at full width: a 2^21-evaluation MLE, the
+           extended polynomial 2^22 coefficients, the zk-encoded witness
+           codeword and the mask's ext codeword 2^24 rows each (KoalaBear's
+           two-adicity at blowup 4: the largest hiding commit),
+           WhirConfig.from_security(100, johnson, 22, blowup 4, k 2, 16
+           PoW bits); commit_hiding and open_hiding cold (per-launch
+           events, spans) and warm (equal), a profile (idle share),
+           launches (K1, K2, the <23, 3> grind, nothing else), peak
+           memory; verify_hiding accepts, a changed value and a changed
+           round-0 mask row are rejected with the reference's classes;
+  masked_zerocheck  FibonacciAir at 2^20 rows through
+           prove_masked_zerocheck, the mask PCS sized by `_mask_layout` at
+           100 bits, the trace and the PCS built before the clock: a cold
+           prove (spans, per-launch events, launches, peak memory) and a
+           warm one (spans, equal); verify_masked_zerocheck accepts, a
+           changed wire is rejected;
+  sharded  the full phase's trace (2^17 x 1,312, added_bits 1) through
+           coset_lde_batch_sharded and its keccak tree through
+           sharded_tree_layers (2^18 LDE rows): world size 1 over NCCL in
+           this process, 2 processes on the one card over gloo (CUDA
+           tensors staged through the host, the all_to_all one batch of
+           sends and receives), one rank a card over NCCL
+           where there are more cards; every rank's blocks equal the
+           single device's coset_lde_batch and _build_layers bit for bit;
+           wall times beside the single device's;
+  native   each host C function (native/: keccak-f batches, keccak256,
+           keccak256_rows, the transcript grind, the Poseidon2 permutation
+           <16, 3>, <24, 3>, <24, 7>, the duplex chain) against its numpy
+           or torch plain version on the host CPU, both timed, a build from
+           nothing timed; a cProfile of one verify of the full phase's
+           proof (the fast phase's, which equals it): the ten functions of
+           most cumulative time.
 `--phases a,b` runs the card and kernels phases and the named ones only
 (a phase that reads another's result needs it named too; a name no
 phase has fails the run at its end); without it every phase runs, as
 above. The kernels phase holds K1/K2 at the M21
-paths' shapes too (2^24 x 1, WHIR's commit; 2^22 x 4; STIR's 2^18 x 16
-iDFT and 2^20 x 16 LDE; the `*_whir_commit`, `*_whir_ext_round`,
-`*_stir_idft`, `*_stir_lde` keys), each launch timed and bounded.
+paths' shapes too (2^24 x 1, WHIR's commit and hiding WHIR's witness
+codeword; 2^24 x 4, hiding WHIR's mask codeword; 2^22 x 4; STIR's 2^18 x
+16 iDFT and 2^20 x 16 LDE; the `*_whir_commit`, `*_hiding_mask`,
+`*_whir_ext_round`, `*_stir_idft`, `*_stir_lde` keys), each launch timed
+and bounded.
 The kernels phase also holds the Poseidon2-GL kernels (csrc/goldilocks.cu)
 against their plain versions: the leaf sponge at 2^17 x 3,536 (the plain
 version over 4 sampled rows), the compression on a 2^16-node level, the
@@ -4197,8 +4236,11 @@ M21_PATH = ("ntt_k1", "ntt_k2", "poseidon2_grind")
 # the NTT shapes of the M21 paths held bit for bit in the kernels phase:
 # WHIR's commit of the CLI's 2^22-coefficient MLE (one column, 2^24 rows)
 # and the multi_stark phase's first extension round (2^20 coefficients of
-# D = 4 columns onto 2^22 rows); STIR's LDE (2^18 x 16 onto 2^20) beside
+# D = 4 columns onto 2^22 rows); hiding WHIR's mask codeword (2^22 ext
+# coefficients onto 2^24 rows of D = 4 columns); STIR's LDE (2^18 x 16
+# onto 2^20) beside
 M21_NTT_CASES = ((24, 1, False, False, "whir_commit"),
+                 (24, 4, False, False, "hiding_mask"),
                  (22, 4, False, False, "whir_ext_round"),
                  (18, 16, True, False, "stir_idft"),
                  (20, 16, False, True, "stir_lde"))
@@ -4674,6 +4716,621 @@ def phase_m21_small(torch, np):
           "launches": launched, "secs": secs})
 
 
+
+# ---------------------------------------------------------------------------
+# M21's rest and M22: hiding WHIR, the masked zerocheck, the sharded LDE and
+# tree, the host hashes in C
+# ---------------------------------------------------------------------------
+HW_LOG_N = 21  # the witness MLE's variables: the extended polynomial 2^22
+HW_SEED = 5
+MZ_LOG_N = 20  # FibonacciAir rows of the masked_zerocheck phase
+SHARDED_WORLD = 2  # ranks on the one card, over gloo
+
+
+def _whir_schedule(n_vars):
+    from plonky3_tpu_torch.multilinear.whir import WhirConfig
+
+    return WhirConfig.from_security(100, "johnson", n_vars,
+                                    field_bits=4 * 31, log_blowup=2,
+                                    folding_factor=2, max_pow_bits=16)
+
+
+def _hiding_pcs(F, E, cfg):
+    """A HidingWhirPcs over the multi_stark phase's Poseidon2 MMCS."""
+    from plonky3_tpu_torch.multilinear.hiding_whir import HidingWhirPcs
+
+    base = _ms_setup(F, E, 10, small=True)
+    return HidingWhirPcs(F=F, E=E, config=cfg, mmcs=base.mmcs,
+                         fri_mmcs=base.fri_mmcs)
+
+
+def _probe(what, fn, expected):
+    """fn() must raise the (class name, message) `expected`."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 (its class is checked)
+        if (type(e).__name__, str(e)) != expected:
+            raise AssertionError(f"{what} raised {type(e).__name__}({e}), "
+                                 f"not {expected}") from e
+        return {"raised": type(e).__name__, "message": str(e)}
+    raise AssertionError(f"{what} was accepted")
+
+
+def phase_hiding_whir(torch, np, kernels, card):
+    """HidingWhirPcs at full width: a 2^HW_LOG_N-evaluation MLE (seeded
+    default_rng), the extended polynomial 2^(HW_LOG_N+1) coefficients, both
+    codewords 2^24 rows at blowup 4 (KoalaBear's two-adicity: the largest
+    hiding commit), WhirConfig.from_security(100, johnson, 22, blowup 4, k
+    2, 16 PoW bits). commit_hiding + open_hiding cold (per-launch events,
+    spans), warm (equal), profiled (idle share); launches (K1, K2, the
+    <23, 3> grind, nothing else), peak memory; verify_hiding accepts, a
+    changed value and a changed round-0 mask row are rejected with the
+    reference's classes."""
+    from plonky3_tpu_torch.challenger.duplex import DuplexChallenger
+    from plonky3_tpu_torch.cli import proof_bytes
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+
+    cfg = _whir_schedule(HW_LOG_N + 1)
+    pcs = _hiding_pcs(F, E, cfg)
+    rng0 = np.random.default_rng(HW_SEED)
+    evals = torch.from_numpy(F.rand_np(rng0, (1 << HW_LOG_N,), monty=False)
+                             .astype(np.int64)).to("cuda")
+    point = [E.rand_h(rng0) for _ in range(HW_LOG_N)]
+    challenger, found = _logged_grinds(lambda: DuplexChallenger(
+        default_poseidon2(F, 24), device="cuda", rate=16))
+
+    def run(spans=None):
+        rng = np.random.default_rng(HW_SEED + 1)
+        t0 = time.perf_counter()
+        commit, data = pcs.commit_hiding(evals, rng, spans=spans)
+        ch = challenger()
+        ch.observe_digest(commit)
+        value, proof = pcs.open_hiding(data, point, ch, rng, spans=spans)
+        torch.cuda.synchronize()
+        return (commit, value, proof), time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    spans = {}
+    (cold, cold_s), calls = recorded(torch, kernels, lambda: run(spans))
+    launches = _m21_launches(kernels, "hiding_whir")
+    peak = torch.cuda.max_memory_allocated() - held
+    per_proof = launch_bounds(card, calls, list(found))
+    warm_spans = {}
+    warm, warm_s = run(warm_spans)
+    if as_plain(warm) != as_plain(cold):
+        raise AssertionError("hiding_whir: the warm proof differs")
+    prof = _profile(torch, run)
+    busy_s = sum(r[0] for r in device_records(prof)) / 1e6
+    commit, value, proof = cold
+
+    def verify(v=value, p=proof):
+        ch = DuplexChallenger(default_poseidon2(F, 24), rate=16)
+        ch.observe_digest(commit)
+        pcs.verify_hiding(commit, HW_LOG_N, point, v, p, ch)
+
+    t0 = time.perf_counter()
+    verify()
+    verify_s = time.perf_counter() - t0
+    bad = copy.deepcopy(proof)
+    q = list(bad.inner.rounds[0].query_proof)
+    q[3] = copy.deepcopy(q[3])
+    q[3][0][0] = _bump(q[3][0][0], F.P)
+    bad.inner.rounds[0].query_proof = tuple(q)
+    # the classes and messages of tests/test_torch_hiding_whir.py's tampers
+    tamper = {"value": _probe("hiding_whir: a changed value",
+                              lambda: verify(v=_bump(value, F.P)),
+                              ("WhirError", "SumcheckClaimMismatch")),
+              "mask_row": _probe("hiding_whir: a changed mask row",
+                                 lambda: verify(p=bad),
+                                 ("WhirError", "MmcsError"))}
+    del bad
+    emit({"phase": "hiding_whir", "witness_vars": HW_LOG_N,
+          "extended_coeffs": 1 << (HW_LOG_N + 1),
+          "codeword_rows": 1 << (HW_LOG_N + 1 + cfg.log_blowup),
+          "whir_rounds": cfg.num_rounds(HW_LOG_N + 1),
+          "whir_queries": list(cfg.round_queries),
+          "whir_pow_bits": list(cfg.round_pow_bits),
+          "cold_events_s": cold_s, "warm_s": warm_s, "verify_s": verify_s,
+          "peak_mem_bytes": peak, "launches": launches,
+          "grind_witnesses": list(found), "spans": spans,
+          "warm_spans": warm_spans, "device_busy_s": busy_s,
+          "device_idle_share": 1 - busy_s / warm_s, "tamper": tamper,
+          "proof_bytes": proof_bytes(proof)})
+    emit({"phase": "hiding_whir_per_proof", "kernels": per_proof})
+    return dict(launches=launches, per_proof=per_proof, device_ms={})
+
+
+def _mask_pcs(F, E, log_n, small=False):
+    """The masked zerocheck's mask PCS, sized by `_mask_layout` as
+    tests/test_zk_multilinear.py::_mask_pcs_for sizes it: 100 bits
+    (WhirConfig.from_security, johnson, blowup 4, k 2, 16 PoW bits), or
+    `small`, that test's schedule (6 queries, 1 OOD sample, 1 PoW bit)."""
+    from plonky3_tpu_torch.multilinear.whir import WhirConfig
+    from plonky3_tpu_torch.multilinear.zk_sumcheck import _mask_layout
+
+    _, _, _, flat_len = _mask_layout(E, log_n, 4)
+    n1 = flat_len.bit_length()  # the committed variables, the zk one too
+    cfg = (WhirConfig(log_blowup=2, folding_factor=2,
+                      final_vars=n1 % 2 if n1 % 2 else 2, num_queries=6,
+                      ood_samples=1, pow_bits=1)
+           if small else _whir_schedule(n1))
+    return _hiding_pcs(F, E, cfg)
+
+
+def _mz_setup(np, dev, log_n, small, challenger=None):
+    """A FibonacciAir masked zerocheck at 2^log_n rows on `dev`, its trace
+    and mask PCS built here: (prove(spans, seed) -> proof, publics,
+    verify(proof)). The prover's transcript comes from `challenger()`,
+    default a duplex transcript that grinds on `dev`."""
+    from plonky3_tpu_torch.challenger.duplex import DuplexChallenger
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+    from plonky3_tpu_torch.models.fibonacci import (FibonacciAir,
+                                                    generate_fibonacci_trace)
+    from plonky3_tpu_torch.multilinear.zk_sumcheck import (
+        prove_masked_zerocheck, verify_masked_zerocheck)
+
+    def ch(device="cpu"):
+        return DuplexChallenger(default_poseidon2(F, 24), device=device,
+                                rate=16)
+
+    trace, publics = generate_fibonacci_trace(F, log_n, device=dev)
+    air = FibonacciAir(F)
+    pcs = _mask_pcs(F, E, log_n, small)
+
+    def prove(spans=None, seed=11):
+        return prove_masked_zerocheck(
+            E, air, trace, publics, (challenger or (lambda: ch(dev)))(),
+            pcs, np.random.default_rng(seed), spans=spans)
+
+    return prove, publics, lambda p: verify_masked_zerocheck(
+        E, air, log_n, publics, p, ch(), pcs)
+
+
+def phase_masked_zerocheck(torch, np, kernels, card):
+    """FibonacciAir at 2^MZ_LOG_N rows (as multi_stark) through
+    prove_masked_zerocheck, the mask PCS at 100 bits, the trace and the
+    PCS built before the clock starts: one cold prove with spans and
+    per-launch events, its launches and peak memory, a warm prove with
+    spans (equal to the cold one); verify_masked_zerocheck accepts, a
+    changed wire is rejected."""
+    from plonky3_tpu_torch.challenger.duplex import DuplexChallenger
+    from plonky3_tpu_torch.cli import proof_bytes
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+
+    challenger, found = _logged_grinds(lambda: DuplexChallenger(
+        default_poseidon2(F, 24), device="cuda", rate=16))
+    t0 = time.perf_counter()
+    prove, publics, verify = _mz_setup(np, "cuda", MZ_LOG_N, False,
+                                       challenger=challenger)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+
+    def run(spans):
+        t0 = time.perf_counter()
+        out = prove(spans)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    spans = {}
+    (proof, prove_s), calls = recorded(torch, kernels, lambda: run(spans))
+    launches = _m21_launches(kernels, "masked_zerocheck")
+    peak = torch.cuda.max_memory_allocated() - held
+    per_proof = launch_bounds(card, calls, list(found))
+    warm_spans = {}
+    warm, warm_s = run(warm_spans)
+    if as_plain(warm) != as_plain(proof):
+        raise AssertionError("masked_zerocheck: the warm proof differs")
+    del warm
+    t0 = time.perf_counter()
+    verify(proof)
+    verify_s = time.perf_counter() - t0
+    bad = copy.deepcopy(proof)
+    bad.rounds[0] = [_bump(bad.rounds[0][0], F.P)] + list(bad.rounds[0][1:])
+    tamper = {"wire": _probe("masked_zerocheck: a changed wire",
+                             lambda: verify(bad),
+                             ("ValueError", "MaskedRoundMismatch round 0"))}
+    emit({"phase": "masked_zerocheck", "rows": 1 << MZ_LOG_N,
+          "setup_s": setup_s, "prove_events_s": prove_s,
+          "warm_prove_s": warm_s, "verify_s": verify_s,
+          "peak_mem_bytes": peak, "launches": launches, "spans": spans,
+          "warm_spans": warm_spans, "tamper": tamper,
+          "rounds": len(proof.rounds), "proof_bytes": proof_bytes(proof)})
+    emit({"phase": "masked_zerocheck_per_proof", "kernels": per_proof})
+    return dict(launches=launches, per_proof=per_proof, device_ms={})
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ntt_launches(card, calls):
+    """Each K1/K2 launch of `recorded` calls: its four-step split, width,
+    slabs, device ms (events) and bound."""
+    out = []
+    for fn, a, ms in calls:
+        if fn in ("ntt_k1", "ntt_k2"):
+            k1 = fn == "ntt_k1"
+            log_a, log_b, w, batch = (a[4], a[5], a[6], a[8]) if k1 else (
+                a[3], a[4], a[5], a[6])
+            b = ntt_bound(card, fn[4:], log_a, log_b, w, k1 and bool(a[7]),
+                          batch)
+            out.append({"kernel": fn, "log_a": log_a, "log_b": log_b,
+                        "w": w, "batch": batch, "ms": ms,
+                        "bound_ms": b[0], "bound_by": b[1]})
+    return out
+
+
+def _sharded_case(torch, F, mmcs, local, ab, group, want_lde, want_layers,
+                  card, turns=("cold", "warm")):
+    """The sharded LDE of this rank's block and the sharded tree of its
+    LDE block, each against the single-device rows it must equal; their
+    wall seconds and launches, the cold turn's K1/K2 launches by events
+    with their bounds."""
+    from plonky3_tpu_torch import kernels
+    from plonky3_tpu_torch.parallel import world_rank
+    from plonky3_tpu_torch.parallel.merkle import sharded_tree_layers
+    from plonky3_tpu_torch.parallel.ntt import coset_lde_batch_sharded
+
+    world, rank = world_rank(group)
+    out = {}
+    for turn in turns:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if turn == "cold":
+            lde, calls = recorded(torch, kernels, lambda: (
+                coset_lde_batch_sharded(F, local, ab, F.GENERATOR, group)))
+            out["ntt_launches"] = _ntt_launches(card, calls)
+        else:
+            lde = coset_lde_batch_sharded(F, local, ab, F.GENERATOR, group)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        layers = sharded_tree_layers(mmcs, lde, group)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out[f"{turn}_lde_s"], out[f"{turn}_tree_s"] = t1 - t0, t2 - t1
+        out[f"{turn}_launches"] = {k: v for k, v in kernels.LAUNCHES.items()
+                                   if v}
+    m = lde.shape[0]
+    equal = torch.equal(lde, want_lde[rank * m:(rank + 1) * m])
+    for got, want in zip(layers, want_layers):
+        if want.shape[0] >= world:
+            k = want.shape[0] // world
+            want = want[rank * k:(rank + 1) * k]
+        equal = equal and torch.equal(got, want)
+    out["equal"] = bool(equal and len(layers) == len(want_layers))
+    return out
+
+
+def _single_device(torch, F, mmcs, trace, ab):
+    """The single-device coset LDE and tree, timed (after a warm-up)."""
+    from plonky3_tpu_torch.merkle.mmcs import _build_layers
+    from plonky3_tpu_torch.ops.ntt import coset_lde_batch
+
+    secs = {}
+    for turn in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lde = coset_lde_batch(F, trace, ab, F.GENERATOR)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        layers = _build_layers(mmcs, [lde])
+        torch.cuda.synchronize()
+        secs[f"{turn}_lde_s"] = t1 - t0
+        secs[f"{turn}_tree_s"] = time.perf_counter() - t1
+    return lde, layers, secs
+
+
+def sharded_rank(rank, world, port, out_dir, backend, log_n, card):
+    """One rank of the sharded phase (a spawned process): bench.py's trace
+    at 2^log_n rows, this rank's block through the sharded LDE and tree,
+    held against the single-device LDE and tree it computes itself;
+    writes its result as JSON."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        from plonky3_tpu_torch.fields import KoalaBear as F
+        from plonky3_tpu_torch.fri.config import FriParameters
+
+        config, _, trace = _workload(
+            np, log_n, FriParameters.new_benchmark_high_arity(), dev)
+        mmcs = config.pcs.mmcs
+        lde, layers, _ = _single_device(torch, F, mmcs, trace, 1)
+        m = trace.shape[0] // world
+        dist.barrier()
+        out = _sharded_case(torch, F, mmcs, trace[rank * m:(rank + 1) * m],
+                            1, None, lde, layers, card, turns=("cold",))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _spawn_ranks(world, backend, log_n, card):
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent
+                                     / "plonky3_tpu_torch" / "_build") as d:
+        t0 = time.perf_counter()
+        mp.spawn(sharded_rank, args=(world, _free_port(), d, backend, log_n,
+                                     card), nprocs=world)
+        secs = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(d, f"rank{r}.json")))
+                 for r in range(world)]
+    if not all(r["equal"] for r in ranks):
+        raise AssertionError(f"sharded {backend} x {world}: a rank's blocks "
+                             f"differ from the single device's")
+    return {"backend": backend, "world": world, "process_s": secs,
+            "ranks": ranks}
+
+
+def phase_sharded(torch, np, kernels, card, full):
+    """coset_lde_batch_sharded over bench.py's trace (2^17 x 1,312,
+    added_bits 1, KoalaBear's generator), then sharded_tree_layers of its
+    keccak MMCS over the 2^18 LDE rows: world size 1 in this process over
+    NCCL, world size SHARDED_WORLD as processes on the one card over gloo
+    (CUDA tensors staged through the host), and one rank a card over NCCL
+    where there are more cards; every rank's blocks equal the single
+    device's coset_lde_batch and _build_layers, bit for bit; wall times
+    beside the single device's."""
+    import torch.distributed as dist
+
+    from plonky3_tpu_torch.fields import KoalaBear as F
+
+    config, _, trace = full["workload"]
+    log_n = trace.shape[0].bit_length() - 1
+    mmcs = config.pcs.mmcs
+    lde, layers, single = _single_device(torch, F, mmcs, trace, 1)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        one = _sharded_case(torch, F, mmcs, trace, 1, None, lde, layers,
+                            card)
+    finally:
+        dist.destroy_process_group()
+    if not one["equal"]:
+        raise AssertionError("sharded nccl x 1: differs from the single "
+                             "device")
+    for k in ("ntt_k1", "ntt_k2", "keccak_sponge", "keccak_ladder"):
+        if not one["warm_launches"].get(k):
+            raise AssertionError(f"sharded: no {k} launched: "
+                                 f"{one['warm_launches']}")
+    del lde, layers
+    torch.cuda.empty_cache()
+    runs = [{"backend": "nccl", "world": 1, "ranks": [one]},
+            _spawn_ranks(SHARDED_WORLD, "gloo", log_n, card)]
+    if torch.cuda.device_count() > 1:
+        runs.append(_spawn_ranks(torch.cuda.device_count(), "nccl", log_n,
+                                 card))
+    emit({"phase": "sharded", "rows": 1 << log_n, "width": trace.shape[1],
+          "lde_rows": 2 << log_n, "single_device": single,
+          "gloo_staging": "host: CUDA tensors copied to the CPU, "
+                          "all_gather, and one batch of send/recv pairs "
+                          "in place of all_to_all", "torch": torch.__version__,
+          "runs": runs, "equal": True})
+
+
+# (C function, what it computes) of the native phase
+NATIVE_GRIND_BITS = 16
+NATIVE_P2 = (("koala-bear", 16), ("koala-bear", 24), ("baby-bear", 24))
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def phase_native(torch, np, full):
+    """Each host C function (native/, csrc/host/) against its numpy or
+    torch plain version on the host that runs the script, both timed: keccak-f
+    batches, keccak256, keccak256_rows, the transcript grind's witness, the
+    Poseidon2 permutation <16, 3>, <24, 3> and <24, 7>, the duplex chain;
+    then a cProfile of one verify of the full phase's proof (the fast
+    phase's, which equals it): the ten functions of most cumulative
+    time."""
+    import cProfile
+    import pstats
+
+    from plonky3_tpu_torch import native
+    from plonky3_tpu_torch.challenger.duplex import DuplexChallenger
+    from plonky3_tpu_torch.challenger.serializing import (
+        SerializingChallenger32)
+    from plonky3_tpu_torch.fields import BabyBear, KoalaBear
+    from plonky3_tpu_torch.hashes import keccak
+    from plonky3_tpu_torch.hashes.keccak256_mmcs import keccak256_rows_np
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+    from plonky3_tpu_torch.stark.verifier import verify
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=native.BUILD_DIR) as d:
+        _, build_s = _timed(lambda: native.build(d))  # a build from nothing
+    rng = np.random.default_rng(17)
+    rows = {}
+
+    def check(name, c_fn, plain_fn, same=lambda a, b: a == b):
+        got, c_s = _timed(c_fn)
+        want, plain_s = _timed(plain_fn)
+        if not same(got, want):
+            raise AssertionError(f"native {name}: C and plain differ")
+        rows[name] = {"c_s": c_s, "plain_s": plain_s}
+
+    arrays = lambda a, b: np.array_equal(a, b)  # noqa: E731
+    st = rng.integers(0, 1 << 63, size=(1 << 14, 25), dtype=np.uint64)
+    check("keccakf_batch 2^14 states",
+          lambda: native.keccakf_batch_u64(st),
+          lambda: keccak.keccak_f1600_plain(st), arrays)
+    msgs = [rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
+            for n in (0, 135, 136, 137, 10_536 * 4)]
+    check("keccak256 5 messages", lambda: [native.keccak256(m) for m in msgs],
+          lambda: [keccak.keccak256_plain(m) for m in msgs])
+    byte_rows = rng.integers(0, 256, size=(1 << 12, 136), dtype=np.uint8)
+    check("keccak256_rows 2^12 x 136 bytes",
+          lambda: native.keccak256_rows(byte_rows),
+          lambda: keccak256_rows_np(byte_rows), arrays)
+    chs = [SerializingChallenger32(KoalaBear) for _ in range(2)]
+    prefix = rng.integers(0, KoalaBear.P, size=24).tolist()
+    for c in chs:
+        c.observe_many(prefix)
+    check(f"keccak grind {NATIVE_GRIND_BITS} bits",
+          lambda: chs[0].grind(NATIVE_GRIND_BITS),
+          lambda: chs[1].grind_plain(NATIVE_GRIND_BITS))
+    fields = {"koala-bear": KoalaBear, "baby-bear": BabyBear}
+    for field, width in NATIVE_P2:
+        F = fields[field]
+        perm = default_poseidon2(F, width)
+        states = F.rand_np(rng, (256, width), monty=False)
+        check(f"poseidon2 {field} <{width}, {perm.d}> 256 states",
+              lambda: [perm.permute_host(s) for s in states],
+              lambda: [perm.permute_np(s).tolist() for s in states])
+    perm = default_poseidon2(KoalaBear, 24)
+    P, width, d, *tables = perm.native_args
+    state = KoalaBear.rand_np(rng, (24,), monty=False)
+    blocks = KoalaBear.rand_np(rng, (658, 16), monty=False)
+
+    def chain_plain():
+        st = state.astype(np.int64)
+        for b in blocks:
+            st[:16] = b
+            st[16] = (st[16] + 16) % P
+            st = perm.permute_np(st)
+        return st
+
+    check("duplex chain 658 blocks <24, 3>", lambda: native.
+          poseidon2_duplex_chain(state, blocks, P, width, 16, d, *tables),
+          chain_plain, arrays)
+    ch = DuplexChallenger(perm)
+    ch.observe(1)
+    _, absorb_s = _timed(lambda: ch.observe_base_array(blocks.reshape(-1)))
+    rows["duplex observe_base_array 10,528 words"] = {"c_s": absorb_s}
+    config, air, _ = full["workload"]
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(verify, config, air, full["proof"], [])
+    verify_s = time.perf_counter() - t0
+    stats = pstats.Stats(prof)
+    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][3])[:10]
+    emit({"phase": "native", "build_s": build_s, "functions": rows,
+          "host_cpu": host_cpu(), "verify_s": verify_s,
+          "verify_top_cumulative": [
+              {"function": f"{Path(f).name}:{line}:{name}", "calls": nc,
+               "tottime_s": tt, "cumtime_s": ct}
+              for (f, line, name), (_, nc, tt, ct, _) in top]})
+
+
+M22_SMALL = ("hiding_whir", "masked_zerocheck", "sharded")
+
+
+def side_m22_small(np, torch, dev, name):
+    """The small M22 case `name` on `dev`: hiding WHIR at n_vars 6 (the
+    CPU tests' config), the masked zerocheck at log_n 4 (the mask PCS of
+    tests/test_zk_multilinear.py), the sharded LDE (256 x 5, added_bits 1)
+    and the keccak and Poseidon2 trees of its rows in a one-rank group
+    (nccl on the card, gloo on the CPU). The CPU's proofs are verified
+    (VERIFY_ONCE)."""
+    import torch.distributed as dist
+
+    from plonky3_tpu_torch.challenger.duplex import DuplexChallenger
+    from plonky3_tpu_torch.fields import KoalaBear as F
+    from plonky3_tpu_torch.fields import KoalaBearExt4 as E
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+    from plonky3_tpu_torch.multilinear.whir import WhirConfig
+
+    secs = {}
+    t0 = time.perf_counter()
+    if name == "hiding_whir":
+        pcs = _hiding_pcs(F, E, WhirConfig(log_blowup=2, folding_factor=2,
+                                           final_vars=1, num_queries=8,
+                                           ood_samples=1, pow_bits=2))
+        rng = np.random.default_rng(3)
+        evals = torch.from_numpy(F.rand_np(rng, (1 << 6,), monty=False)
+                                 .astype(np.int64)).to(dev)
+        commit, data = pcs.commit_hiding(evals, rng)
+        point = [E.rand_h(rng) for _ in range(6)]
+        value, proof = pcs.open_hiding(data, point, DuplexChallenger(
+            default_poseidon2(F, 24), device=dev, rate=16), rng)
+        out = (commit, value, proof)
+        if dev == "cpu":
+            pcs.verify_hiding(commit, 6, point, value, proof,
+                              DuplexChallenger(default_poseidon2(F, 24),
+                                               rate=16))
+    elif name == "masked_zerocheck":
+        prove, _, verify = _mz_setup(np, dev, 4, True)
+        out = proof = prove()
+        if dev == "cpu":
+            verify(proof)
+    else:
+        from plonky3_tpu_torch.hashes.keccak_sponge import (
+            KeccakCompressor, KeccakFieldSponge)
+        from plonky3_tpu_torch.merkle.mmcs import MerkleTreeMmcs
+        from plonky3_tpu_torch.parallel.merkle import sharded_tree_layers
+        from plonky3_tpu_torch.parallel.ntt import coset_lde_batch_sharded
+
+        mat = torch.from_numpy(F.rand_np(np.random.default_rng(0), (256, 5))
+                               .astype(np.int64)).to(dev)
+        dist.init_process_group("nccl" if dev == "cuda" else "gloo",
+                                init_method=f"tcp://127.0.0.1:"
+                                f"{_free_port()}", rank=0, world_size=1)
+        try:
+            lde = coset_lde_batch_sharded(F, mat, 1, F.GENERATOR)
+            trees = [sharded_tree_layers(m, lde) for m in (
+                MerkleTreeMmcs(sponge=KeccakFieldSponge(F),
+                               compressor=KeccakCompressor()),
+                _ms_setup(F, E, 10, small=True).mmcs)]
+        finally:
+            dist.destroy_process_group()
+        out = (lde.cpu().tolist(),
+               [[x.cpu().tolist() for x in t] for t in trees])
+    sync(torch, dev)
+    secs[f"{name}_{dev}_s"] = time.perf_counter() - t0
+    return {"plain": as_plain(out), "secs": secs}
+
+
+def phase_m22_small(torch, np):
+    """Hiding WHIR at n_vars 6, the masked zerocheck at log_n 4 and the
+    sharded LDE and tree at 256 rows: each CUDA result equals the CPU's
+    (plain versions, in a CPU worker, where each proof is verified)."""
+    from plonky3_tpu_torch import kernels
+
+    secs, launched = {}, {}
+    for name in M22_SMALL:
+        kernels.reset_launches()
+        cuda = side_m22_small(np, torch, "cuda", name)
+        launched[name] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        cpu, cpu_secs, _ = cpu_side("side_m22_small", name)
+        secs.update(cuda["secs"], **cpu_secs)
+        if cuda["plain"] != cpu:
+            raise AssertionError(f"the small {name} results differ")
+        if not launched[name].get("ntt_k1"):
+            raise AssertionError(f"the small {name} case launched no K1")
+    emit({"phase": "m22_small", "equal": list(M22_SMALL),
+          "launches": launched, "secs": secs})
+
+
 def host_cpu() -> str:
     """The first CPU's model name with its vendor, family, model and
     clock from /proc/cpuinfo (where the name reads "unknown", family
@@ -4927,7 +5584,10 @@ CPU_JOBS = (("kernels", "side_gl_sponge", ()),
             ("gl_small", "side_gl_small", ("monolith",)),
             ("m21_small", "side_m21_small", ("stir",)),
             ("m21_small", "side_m21_small", ("whir",)),
-            ("m21_small", "side_m21_small", ("multi_stark",)))
+            ("m21_small", "side_m21_small", ("multi_stark",)),
+            ("m22_small", "side_m22_small", ("hiding_whir",)),
+            ("m22_small", "side_m22_small", ("masked_zerocheck",)),
+            ("m22_small", "side_m22_small", ("sharded",)))
 
 
 def _run_phases(torch, np, kernels, card, timed):
@@ -4981,6 +5641,12 @@ def _run_phases(torch, np, kernels, card, timed):
     pcs = timed("pcs_comparison", phase_pcs_comparison, torch, np, kernels,
                 card)
     mst = timed("multi_stark", phase_multi_stark, torch, np, kernels, card)
+    timed("m22_small", phase_m22_small, torch, np)
+    hw = timed("hiding_whir", phase_hiding_whir, torch, np, kernels, card)
+    mz = timed("masked_zerocheck", phase_masked_zerocheck, torch, np,
+               kernels, card)
+    timed("sharded", phase_sharded, torch, np, kernels, card, full)
+    timed("native", phase_native, torch, np, full)
     # launches, proof_* : the main path (the fast prover) of the kernel's
     # config, keccak or (the duplex transcript's kernels) Poseidon2, and
     # for BabyBear's duplex kernels (<21, 7>, `*_babybear`) the BabyBear
@@ -5029,6 +5695,8 @@ def _run_phases(torch, np, kernels, card, timed):
         for key, got, path in (("_pcs_stir", pcs and pcs["stir"], M21_PATH),
                                ("_pcs_whir", pcs and pcs["whir"], M21_PATH),
                                ("_multi_stark", mst, M21_PATH),
+                               ("_hiding_whir", hw, M21_PATH),
+                               ("_masked_zerocheck", mz, M21_PATH),
                                ("_zk_air", zk, ZK_PATH),
                                ("_batch", bt, BATCH_PATH),
                                ("_batch_ref", bref, BATCH_REF_PATH),

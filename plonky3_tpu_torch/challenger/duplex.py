@@ -23,7 +23,9 @@ DuplexChallenger<BabyBear, Perm16, 16, 8>, `compat/fixture_configs.py`);
 the grind kernel fixes width 24 and rate 16, so such a transcript grinds
 on the host, as the reference's does.
 
-The permutation is the numpy `Poseidon2.permute_np`. The prover's
+The permutation is the C one of `native/` (`Poseidon2.permute_host`), and
+`observe_base_array` absorbs its full rate blocks in one C call
+(`native.poseidon2_duplex_chain`), as the reference's do. The prover's
 `prove()` and the verifier use this class; the fast prover uses
 `device_duplex.DeviceDuplexChallenger`, which samples the same values.
 """
@@ -33,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..hashes.poseidon2_cuda import RATE, WIDTH, poseidon2_grind
 from .hash_challenger import sample_uniform_bits
 
@@ -61,8 +64,7 @@ class DuplexChallenger:
             self.state[k:self.rate] = [0] * (self.rate - k)
             self.state[self.rate] = ((self.state[self.rate] + k)
                                      % self.perm.F.P)
-        out = self.perm.permute_np(np.asarray(self.state, dtype=np.int64))
-        self.state = [int(x) for x in out]
+        self.state = self.perm.permute_host(self.state)
         self.output_buffer = self.state[:self.rate]
 
     # -- observation ------------------------------------------------------
@@ -80,8 +82,35 @@ class DuplexChallenger:
         self.observe_many(ext_tuple)
 
     def observe_base_array(self, values_std: np.ndarray):
-        """Standard-form elements in row-major order."""
-        self.observe_many(np.asarray(values_std).reshape(-1).tolist())
+        """Standard-form elements in row-major order (the same transcript
+        as observing them one by one). The full rate blocks after the
+        queued inputs absorb in one C call, where the permutation has one
+        (the reference's `observe_base_array`); the head and the tail go
+        one by one. A permutation without a C chain (Goldilocks, whose
+        words do not fit in 32 bits) observes them all one by one."""
+        args = getattr(self.perm, "native_args", None)
+        if args is None:
+            self.observe_many(np.asarray(values_std).reshape(-1).tolist())
+            return
+        F = self.perm.F
+        v = (np.asarray(values_std).reshape(-1).astype(np.uint64)
+             % np.uint64(F.P)).astype(np.uint32)
+        head = min(v.size, (self.rate - len(self.input_buffer)) % self.rate)
+        nblocks = (v.size - head) // self.rate
+        if nblocks == 0:
+            self.observe_many(v.tolist())
+            return
+        self.observe_many(v[:head].tolist())
+        P, width, d, *tables = args
+        end = head + nblocks * self.rate
+        st = native.poseidon2_duplex_chain(
+            np.asarray(self.state, dtype=np.uint32),
+            v[head:end].reshape(nblocks, self.rate), P, width, self.rate, d,
+            *tables)
+        self.state = st.tolist()
+        self.input_buffer = []
+        self.output_buffer = self.state[:self.rate]
+        self.observe_many(v[end:].tolist())
 
     def observe_digest(self, values):
         """A field digest, or a Merkle cap (a sequence of digests, observed

@@ -14,13 +14,16 @@ Port of `plonky3_tpu/challenger/serializing.py`
                 rejection-sampled until < P
   sample_bits:  4 popped bytes as a LE u32 & (2^bits - 1)
   grind(bits):  the smallest witness w with sample_bits(bits) == 0 after
-                observe(w), searched with the batched numpy keccak256.
+                observe(w), searched by `native.keccak256_grind` in C, as
+                the reference's (`grind_plain`: the batched numpy
+                keccak256, its plain version).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..hashes.keccak import keccak256, keccak256_np_batch
 
 
@@ -107,9 +110,30 @@ class SerializingChallenger32:
         self.observe(witness)
         return self.sample_bits(bits) == 0
 
-    def grind(self, bits: int, batch: int = 1 << 16) -> int:
+    def grind(self, bits: int, batch: int = 1 << 17) -> int:
         """Smallest witness; grind(0) returns 0 and touches nothing
-        (grinding_challenger.rs)."""
+        (grinding_challenger.rs). Candidates go in order, `batch` at a
+        time, through the C search."""
+        if bits == 0:
+            return 0
+        prefix = bytes(self.input_buffer)
+        mask = (1 << bits) - 1
+        for start in range(0, self.F.P, batch):
+            cands = np.arange(start, min(start + batch, self.F.P),
+                              dtype=np.uint32)
+            i = native.keccak256_grind(prefix, self.F.to_monty_np(cands),
+                                       mask)
+            if i >= 0:
+                return self._replayed(bits, start + i)
+        raise RuntimeError("no grind witness found")
+
+    def _replayed(self, bits: int, w: int) -> int:
+        if not self.check_witness(bits, w):
+            raise RuntimeError("grind witness failed its replay")
+        return w
+
+    def grind_plain(self, bits: int, batch: int = 1 << 16) -> int:
+        """`grind` by the batched numpy keccak256."""
         if bits == 0:
             return 0
         prefix = bytes(self.input_buffer)
@@ -129,9 +153,6 @@ class SerializingChallenger32:
                  | (digests[:, 28].astype(np.uint32) << 24))
             hits = np.nonzero((v & mask) == 0)[0]
             if hits.size:
-                w = int(start + hits[0])
-                if not self.check_witness(bits, w):
-                    raise RuntimeError("grind witness failed its replay")
-                return w
+                return self._replayed(bits, int(start + hits[0]))
             start += n
         raise RuntimeError("no grind witness found")

@@ -1,12 +1,15 @@
 """Keccak-f[1600] and Keccak-256.
 
 Port of `plonky3_tpu/hashes/keccak.py` (keccak/src/lib.rs:70 KeccakF,
-:100 Keccak256Hash). One round function `keccak_f` runs on (25, ...)
-lanes, lanes first: a numpy uint64 state (the transcript's keccak256)
-and torch int64 tensors (the batched host hashing and proof-of-work
-search on the CPU, the plain versions of the kernels in
-`keccak_cuda.py`). The CUDA kernels in csrc/keccak.cu follow the same
-round structure.
+:100 Keccak256Hash). The host paths go through the C library of
+`native/`, as the reference's do: `keccak256` (the transcript's),
+`keccak_f1600_np` and `keccak_f1600_arrays` (the host keccak-f batches)
+and `keccak_f1600_host`. One round function `keccak_f` runs on (25, ...)
+lanes, lanes first: numpy uint64 and torch int64 tensors; it makes the
+plain versions (`keccak256_plain`, `keccak_f1600_plain`,
+`keccak256_np_batch`) that the tests hold the C functions against, and
+the plain versions of the kernels in `keccak_cuda.py`. The CUDA kernels in
+csrc/keccak.cu follow the same round structure.
 
 Lanes are indexed x + 5·y.
 """
@@ -15,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import native
 
 RC64 = (
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
@@ -91,11 +96,17 @@ def keccak_f(st):
 
 def keccak_f1600_host(lanes) -> list:
     """lanes: 25 Python ints (u64) -> the permuted lanes."""
-    return [int(x) for x in keccak_f(np.array(lanes, dtype=np.uint64))]
+    return [int(x) for x in native.keccakf_batch_u64(
+        np.array(lanes, dtype=np.uint64))]
 
 
 def keccak256(data: bytes) -> bytes:
-    """Keccak-256 (original 0x01 padding, not SHA3-256)."""
+    """Keccak-256 (original 0x01 padding, not SHA3-256), in C."""
+    return native.keccak256(data)
+
+
+def keccak256_plain(data: bytes) -> bytes:
+    """`keccak256` by the numpy round function."""
     rate = 136
     padded = bytearray(data)
     padded += b"\x00" * (rate - len(padded) % rate)
@@ -111,9 +122,14 @@ def keccak256(data: bytes) -> bytes:
 
 # ---- numpy uint64 (batched host hashing) ---------------------------------
 def keccak_f1600_np(st: np.ndarray) -> np.ndarray:
-    """Batched permutation of (..., 25) uint64 states, through torch on
-    the CPU: its threads outrun numpy on a batch (2^16 states: ~0.14 s
-    against numpy's ~0.3 s, 8 cores)."""
+    """Batched permutation of (..., 25) uint64 states, in C."""
+    return native.keccakf_batch_u64(st)
+
+
+def keccak_f1600_plain(st: np.ndarray) -> np.ndarray:
+    """`keccak_f1600_np` through torch on the CPU: its threads outrun
+    numpy on a batch (2^16 states: ~0.14 s against numpy's ~0.3 s, 8
+    cores)."""
     lanes = np.ascontiguousarray(np.moveaxis(st, -1, 0)).view(np.int64)
     out = keccak_f(torch.from_numpy(lanes)).numpy().view(np.uint64)
     return np.moveaxis(out, 0, -1)
@@ -146,6 +162,6 @@ def keccak256_np_batch(prefix: bytes, candidates: np.ndarray) -> np.ndarray:
     st = np.zeros((n, 25), dtype=np.uint64)
     for off in range(0, total // 8, rate // 8):
         st[:, :rate // 8] ^= words[:, off:off + rate // 8]
-        st = keccak_f1600_np(st)
+        st = keccak_f1600_plain(st)
     return np.ascontiguousarray(st[:, :4]).astype("<u8").view(
         np.uint8).reshape(n, 32)

@@ -9,8 +9,10 @@ serde, mersenne_31.rs:180-185).
 
 The reference hashes these on the host (a conformance target, not the
 benchmark's path, which is the u64-lane KeccakF sponge); so does the
-port, in numpy batches of equal-length messages, and the device methods
-move the digests to the matrices' device.
+port, every row by the C library of `native/` (`keccak256_rows`, the
+reference's route), and the device methods move the digests to the
+matrices' device. `keccak256_rows_np` (numpy batches of equal-length
+messages) is the plain version the tests hold it against.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .keccak import keccak256, keccak_f1600_np
+from .. import native
+from .keccak import keccak256, keccak_f1600_plain
 
 _RATE = 136
 
@@ -37,7 +40,7 @@ def keccak256_rows_np(msgs: np.ndarray) -> np.ndarray:
     st = np.zeros((h, 25), dtype=np.uint64)
     for off in range(0, total // 8, _RATE // 8):
         st[:, :_RATE // 8] ^= words[:, off:off + _RATE // 8]
-        st = keccak_f1600_np(st)
+        st = keccak_f1600_plain(st)
     return np.ascontiguousarray(st[:, :4]).astype("<u8").view(
         np.uint8).reshape(h, 32)
 
@@ -64,7 +67,7 @@ class Keccak256FieldHasher:
         h = mats[0].shape[0]
         flat = np.concatenate([np.asarray(m).reshape(h, -1) for m in mats],
                               axis=1)
-        return keccak256_rows_np(_rows_to_bytes(flat)).astype(np.uint32)
+        return native.keccak256_rows(_rows_to_bytes(flat)).astype(np.uint32)
 
     def hash_rows_device(self, mats):
         """Same-height (h, ...) int64 tensors -> (h, 32) int64 digests on
@@ -86,7 +89,7 @@ class Keccak256Compressor:
     def compress_np(self, left, right):
         msgs = np.concatenate([np.asarray(left, dtype=np.uint8),
                                np.asarray(right, dtype=np.uint8)], axis=1)
-        return keccak256_rows_np(msgs).astype(np.uint32)
+        return native.keccak256_rows(msgs).astype(np.uint32)
 
     def compress_device(self, left, right):
         return _to_device(self.compress_np(left.cpu().numpy(),

@@ -10,8 +10,9 @@ s-box is x^3 over KoalaBear and x^7 over BabyBear (`S_BOX_DEGREE`).
 
 `permute` takes (..., width) int64 tensors in Montgomery form (the Merkle
 sponge and compressor, the kernels' plain versions); `permute_np` takes
-numpy arrays in standard form (the host transcript and the verifier, the
-port's counterpart of `permute_host` and `native/poseidon2.c`). Both run
+numpy arrays in standard form (host batches, and the plain version of
+`permute_host`, one state through the C permutation of `native/`, the
+host transcript's, as the reference's `permute_host`). Both run
 `_permute_std`, one exact computation in standard form: Montgomery form
 is a field isomorphism, so converting at the ends gives the reference's
 bits, and a standard-form product needs one `%` where a Montgomery one
@@ -159,6 +160,11 @@ class Poseidon2:
                 ("rc_ef", self.rc_external_final),
                 ("diag", self.diag_std))})
         object.__setattr__(self, "_on_device", {})
+        # the C permutation's arguments (native/): standard-form u32
+        object.__setattr__(self, "native_args", (
+            self.F.P, self.width, self.d,
+            *(self.tables_np[k].astype(np.uint32)
+              for k in ("rc_ei", "rc_int", "rc_ef", "diag"))))
 
     def on_device(self, name, device, make):
         """make(device), made once per (name, device) and kept: the
@@ -225,6 +231,16 @@ class Poseidon2:
         (..., width) buffer of standard-form values, `tables` its kind of
         `std_tables`."""
         return _permute_std(x, tables, self.F.P, self.d)
+
+    def permute_host(self, state) -> list:
+        """One permutation of a (width,) standard-form state (ints) in C
+        (native/poseidon2.c; the reference routes its `permute_host`
+        there): a list of standard-form ints."""
+        from .. import native
+
+        P, width, d, *tables = self.native_args
+        return native.poseidon2_permute(np.asarray(state, dtype=np.uint32),
+                                        P, width, d, *tables).tolist()
 
     def permute_np(self, states):
         """Batched permutation of (..., width) standard-form values (any

@@ -435,7 +435,8 @@ class WhirPcs:
     def _open_core(self, cd, point, value, challenger, tree0, log_h0, ext0,
                    init_constraints=None, spans=None):
         """The WHIR round loop from (N, D) ext coefficients `cd` and a
-        round-0 oracle (tree0, ext0). init_constraints: an optional
+        round-0 oracle (tree0, ext0; "paired" with a `_PairedTrees` for
+        the hiding code-switch, hiding_whir.py). init_constraints: an optional
         [(point, scale)] weighted statement that replaces the single
         point (the claim `value` is the sum of the scaled evaluations):
         the multi-point batching of the reference's EqStatement."""
@@ -553,7 +554,19 @@ class WhirPcs:
         rows = [challenger.sample_bits(log_h - k)
                 for _ in range(n_queries if n_queries is not None
                                else cfg.num_queries)]
-        if is_ext:
+        if is_ext == "paired":
+            # the hiding code-switch's round 0 (hiding_whir.py): open the
+            # zk-encoded witness tree and the ext mask tree at the same
+            # rows; the combined values are g + rho·m
+            g_pq, g_proof = self.mmcs.open_multi_batch(tree.tree_g, rows)
+            m_pq, m_proof = self.fri_mmcs.open_multi_batch(tree.tree_m,
+                                                           rows)
+            qvals = [[E.add_h(E.from_base_h(gv), E.mul_h(tree.rho, mv))
+                      for gv, mv in zip(gq[0], mq[0])]
+                     for gq, mq in zip(g_pq, m_pq)]
+            proof = ("paired", [gq[0] for gq in g_pq], g_proof,
+                     [mq[0] for mq in m_pq], m_proof)
+        elif is_ext:
             vals_pq, proof = self.fri_mmcs.open_multi_batch(tree, rows)
             qvals = [q[0] for q in vals_pq]
         else:
@@ -698,6 +711,28 @@ class WhirPcs:
         for g in rp.query_values:
             if len(g) != (1 << k):
                 raise WhirError("QueryGroupShapeMismatch")
+        if is_ext == "paired":
+            # the hiding round 0: authenticate both trees, recombine, and
+            # pin the combined values that the fold checks consume
+            if not (isinstance(rp.query_proof, tuple)
+                    and rp.query_proof[0] == "paired"):
+                raise WhirError("MissingPairedProof")
+            _, g_rows, g_proof, m_rows, m_proof = rp.query_proof
+            dims = [(1 << (log_h - k), 1 << k)]
+            if not self.mmcs.verify_multi_batch(
+                    commit.commit_g, dims, rows, [[g] for g in g_rows],
+                    g_proof):
+                raise WhirError("MmcsError")
+            if not self.fri_mmcs.verify_multi_batch(
+                    commit.commit_m, dims, rows, [[m] for m in m_rows],
+                    m_proof):
+                raise WhirError("MmcsError")
+            for qv, gq, mq in zip(rp.query_values, g_rows, m_rows):
+                comb = [E.add_h(E.from_base_h(gv), E.mul_h(commit.rho, mv))
+                        for gv, mv in zip(gq, mq)]
+                if list(qv) != comb:
+                    raise WhirError("PairedCombineMismatch")
+            return
         if is_ext:
             ok = self.fri_mmcs.verify_multi_batch(
                 commit,

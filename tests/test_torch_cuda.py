@@ -925,3 +925,93 @@ def test_m21_proof_equals_cpu(cuda, name):
     got = _m21_proof(name, cuda)
     assert kernels.LAUNCHES["ntt_k1"] > before
     assert plain(got) == plain(_m21_proof(name, "cpu"))
+
+
+def _m22_result(name, device):
+    """A small hiding WHIR opening (n_vars 6), masked zerocheck
+    (FibonacciAir at 2^4 rows) or sharded LDE and keccak tree (256 x 5
+    in a one-rank gloo group: CUDA tensors staged through the host) on
+    `device`, from seeded inputs."""
+    import torch.distributed as dist
+
+    from plonky3_tpu_torch.challenger.duplex import DuplexChallenger
+    from plonky3_tpu_torch.hashes.poseidon2 import default_poseidon2
+    from plonky3_tpu_torch.hashes.sponge import (PaddingFreeSponge,
+                                                 TruncatedPermutation)
+    from plonky3_tpu_torch.merkle.extension_mmcs import ExtensionMmcs
+    from plonky3_tpu_torch.merkle.mmcs import MerkleTreeMmcs
+    from plonky3_tpu_torch.multilinear.hiding_whir import HidingWhirPcs
+    from plonky3_tpu_torch.multilinear.whir import WhirConfig
+
+    mmcs = MerkleTreeMmcs(
+        sponge=PaddingFreeSponge(default_poseidon2(F, 24), rate=16, out=8),
+        compressor=TruncatedPermutation(default_poseidon2(F, 16), chunk=8))
+
+    def pcs(n1, queries, pow_bits):
+        cfg = WhirConfig(log_blowup=2, folding_factor=2,
+                         final_vars=n1 % 2 if n1 % 2 else 2,
+                         num_queries=queries, ood_samples=1,
+                         pow_bits=pow_bits)
+        return HidingWhirPcs(F=F, E=E, config=cfg, mmcs=mmcs,
+                             fri_mmcs=ExtensionMmcs(inner=mmcs, D=E.D))
+
+    def ch():
+        return DuplexChallenger(default_poseidon2(F, 24), device=device,
+                                rate=16)
+
+    if name == "hiding_whir":
+        rng = np.random.default_rng(3)
+        evals = torch.from_numpy(F.rand_np(rng, (1 << 6,), monty=False)
+                                 .astype(np.int64)).to(device)
+        p = pcs(7, 8, 2)
+        commit, data = p.commit_hiding(evals, rng)
+        point = [E.rand_h(rng) for _ in range(6)]
+        return commit, p.open_hiding(data, point, ch(), rng)
+    if name == "masked_zerocheck":
+        from plonky3_tpu_torch.models.fibonacci import (
+            FibonacciAir, generate_fibonacci_trace)
+        from plonky3_tpu_torch.multilinear import prove_masked_zerocheck
+
+        trace, publics = generate_fibonacci_trace(F, 4, device=device)
+        return prove_masked_zerocheck(E, FibonacciAir(F), trace, publics,
+                                      ch(), pcs(7, 6, 1),
+                                      np.random.default_rng(11))
+    from plonky3_tpu_torch.hashes.keccak_sponge import (KeccakCompressor,
+                                                        KeccakFieldSponge)
+    from plonky3_tpu_torch.parallel.merkle import sharded_tree_layers
+    from plonky3_tpu_torch.parallel.ntt import coset_lde_batch_sharded
+
+    mat = torch.from_numpy(F.rand_np(np.random.default_rng(0), (256, 5))
+                           .astype(np.int64)).to(device)
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:29571",
+                            rank=0, world_size=1)
+    try:
+        lde = coset_lde_batch_sharded(F, mat, 1, F.GENERATOR)
+        layers = sharded_tree_layers(MerkleTreeMmcs(
+            sponge=KeccakFieldSponge(F), compressor=KeccakCompressor()), lde)
+        return lde.cpu().tolist(), [x.cpu().tolist() for x in layers]
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["hiding_whir", "masked_zerocheck",
+                                  "sharded"])
+def test_m22_equals_cpu(cuda, name):
+    """Hiding WHIR, the masked zerocheck and the sharded LDE and tree on
+    the card give the CPU's results (K1/K2 launched)."""
+    import dataclasses
+
+    from plonky3_tpu_torch import kernels
+
+    def plain(x):
+        if dataclasses.is_dataclass(x):
+            return tuple((f.name, plain(getattr(x, f.name)))
+                         for f in dataclasses.fields(x))
+        if isinstance(x, (list, tuple)):
+            return tuple(plain(v) for v in x)
+        return int(x) if isinstance(x, np.integer) else x
+
+    before = kernels.LAUNCHES["ntt_k1"]
+    got = _m22_result(name, cuda)
+    assert kernels.LAUNCHES["ntt_k1"] > before
+    assert plain(got) == plain(_m22_result(name, "cpu"))
